@@ -1,0 +1,170 @@
+"""Session and DataFrame API of the port (the slice of
+spark_rapids_tpu/engine.py that TPC-H q1, q6 and the q18 lineitem
+aggregate use).
+
+    s = TpuSession({"spark.rapids.sql.variableFloatAgg.enabled": "true"})
+    df = s.from_numpy({"k": np.array([1, 2, 1]), "v": np.array([.5, 1., 2.])})
+    df.group_by("k").agg(F.sum(col("v")).alias("s")).order_by("k").collect()
+
+A session runs on the card (`device="cuda"`) unless the caller asks for
+the CPU; with no card present it raises rather than carry on elsewhere.
+Tables are copied to the device once, when the DataFrame is made.
+`collect()` returns Python rows and `to_pydict()` numpy columns; the main
+path needs no pyarrow.
+"""
+from __future__ import annotations
+
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from .columnar import ColumnarBatch, bucket_rows
+from .config import TpuConf
+from .exec.base import ExecContext, ExecNode
+from .exec.basic import DeviceToHostExec
+from .plan import logical as L
+from .plan.logical import ColumnExpr, SortOrder, col, lit
+from .plan.physical import convert, plan_schema
+from .types import (BooleanType, ByteType, DataType, DateType, DoubleType,
+                    FloatType, IntegerType, LongType, Schema, ShortType,
+                    StringType, StructField, TimestampType)
+
+
+def resolve_device(device) -> torch.device:
+    """The session's device; a CUDA device must exist."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "TpuSession(device='cuda') but torch.cuda.is_available() is "
+            "false; pass device='cpu' to run on the CPU")
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {device!r}")
+    return dev
+
+
+_BY_NUMPY = {t.np_dtype: t for t in (BooleanType, ByteType, ShortType,
+                                      IntegerType, LongType, FloatType,
+                                      DoubleType)}
+
+
+def _infer_type(values) -> DataType:
+    """Column type of host values: numpy's own type; Python ints become
+    long, floats double, str string; datetime64[D] is a date."""
+    arr = np.asarray(values)
+    if arr.dtype == object:
+        vals = [v for v in arr.tolist() if v is not None]
+        if vals and isinstance(vals[0], str):
+            return StringType
+        arr = np.asarray(vals if vals else [0])
+    kind = arr.dtype.kind
+    if kind in "SU":
+        return StringType
+    if kind == "M":
+        return DateType if arr.dtype == np.dtype("datetime64[D]") \
+            else TimestampType
+    if arr.dtype in _BY_NUMPY:
+        return _BY_NUMPY[arr.dtype]
+    raise TypeError(f"cannot infer a column type from {arr.dtype}")
+
+
+class TpuSession:
+    def __init__(self, conf: Optional[Dict] = None, device="cuda"):
+        self.conf = TpuConf(conf)
+        self.device = resolve_device(device)
+        # the physical plan of the last executed query (tests read the
+        # aggregate's update_paths from it)
+        self.last_plan: Optional[ExecNode] = None
+
+    def from_numpy(self, columns: Dict[str, object],
+                   schema: Optional[Schema] = None) -> "DataFrame":
+        """A DataFrame over host columns, copied to the device now.
+        Columns are numpy arrays (dates as int32 days or datetime64[D],
+        strings as `S`/`U` arrays), numpy masked arrays, or lists."""
+        if schema is None:
+            schema = Schema([StructField(k, _infer_type(v))
+                             for k, v in columns.items()])
+        n = len(next(iter(columns.values()))) if columns else 0
+        table = ColumnarBatch.from_numpy(columns, schema, self.device,
+                                         capacity=bucket_rows(max(n, 1)))
+        return DataFrame(self, L.LogicalScan(table, n, schema))
+
+    def plan(self, logical: L.LogicalPlan) -> ExecNode:
+        return convert(logical, self.conf)
+
+    def _execute(self, logical: L.LogicalPlan, rows: bool):
+        root = DeviceToHostExec(self.plan(logical))
+        self.last_plan = root
+        ctx = ExecContext(self.conf, self.device)
+        return list(root.execute_host(ctx, rows))
+
+
+class DataFrame:
+    def __init__(self, session: TpuSession, plan: L.LogicalPlan):
+        self.session = session
+        self.plan = plan
+
+    def _wrap_cols(self, cols) -> List[ColumnExpr]:
+        return [col(c) if isinstance(c, str)
+                else c if isinstance(c, ColumnExpr) else lit(c)
+                for c in cols]
+
+    def select(self, *cols) -> "DataFrame":
+        return DataFrame(self.session,
+                         L.LogicalProject(self._wrap_cols(cols), self.plan))
+
+    def with_column(self, name: str, expr: ColumnExpr) -> "DataFrame":
+        exprs = [col(n) for n in self.schema.names if n != name]
+        return self.select(*exprs, expr.alias(name))
+
+    def filter(self, condition: ColumnExpr) -> "DataFrame":
+        return DataFrame(self.session, L.LogicalFilter(condition, self.plan))
+
+    def group_by(self, *cols) -> "GroupedData":
+        return GroupedData(self, self._wrap_cols(cols))
+
+    def agg(self, *aggs) -> "DataFrame":
+        return GroupedData(self, []).agg(*aggs)
+
+    def order_by(self, *orders) -> "DataFrame":
+        os = [o if isinstance(o, SortOrder)
+              else SortOrder(col(o) if isinstance(o, str) else o)
+              for o in orders]
+        return DataFrame(self.session, L.LogicalSort(os, self.plan))
+
+    @property
+    def schema(self) -> Schema:
+        return plan_schema(self.plan, self.session.conf)
+
+    def physical_plan(self) -> ExecNode:
+        return self.session.plan(self.plan)
+
+    def collect(self) -> List[tuple]:
+        """The result as Python rows."""
+        out: List[tuple] = []
+        for part in self.session._execute(self.plan, rows=True):
+            out.extend(part)
+        return out
+
+    def to_pydict(self) -> Dict[str, np.ndarray]:
+        """The result as numpy columns (masked arrays where nulls occur)."""
+        parts = self.session._execute(self.plan, rows=False)
+        names = self.schema.names
+        if not parts:
+            return {n: np.array([]) for n in names}
+        if len(parts) == 1:
+            return parts[0]
+        return {n: (np.ma.concatenate([p[n] for p in parts])
+                    if any(np.ma.isMaskedArray(p[n]) for p in parts)
+                    else np.concatenate([p[n] for p in parts]))
+                for n in names}
+
+
+class GroupedData:
+    def __init__(self, df: DataFrame, keys: List[ColumnExpr]):
+        self.df = df
+        self.keys = keys
+
+    def agg(self, *aggs) -> DataFrame:
+        return DataFrame(self.df.session, L.LogicalAggregate(
+            self.keys, list(aggs), self.df.plan))

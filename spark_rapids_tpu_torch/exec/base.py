@@ -1,0 +1,38 @@
+"""Physical operator base classes (port of spark_rapids_tpu/exec/base.py).
+
+An exec is a node of the physical plan; `execute(ctx)` yields device
+batches.  The port runs operators eagerly, one PyTorch call after
+another; there is no compiled-stage cache, metrics registry or memory
+runtime yet.
+"""
+from __future__ import annotations
+
+from typing import Iterator, Optional
+
+import torch
+
+from ..columnar import ColumnarBatch
+from ..config import TpuConf
+from ..types import Schema
+
+
+class ExecContext:
+    """What one execution of a plan shares: the session conf and the
+    device every batch lives on."""
+
+    def __init__(self, conf: Optional[TpuConf] = None,
+                 device: torch.device = torch.device("cpu")):
+        self.conf = conf if conf is not None else TpuConf()
+        self.device = device
+
+
+class ExecNode:
+    def __init__(self, *children: "ExecNode"):
+        self.children = list(children)
+
+    @property
+    def schema(self) -> Schema:
+        raise NotImplementedError
+
+    def execute(self, ctx: ExecContext) -> Iterator[ColumnarBatch]:
+        raise NotImplementedError

@@ -1,0 +1,111 @@
+"""Basic operators: the in-memory scan, project, filter, and the
+device-to-host edge (port of the device half of
+spark_rapids_tpu/exec/basic.py).
+
+Project and filter move no data: filter ANDs into the batch's selection
+mask.  Whole-stage fusion does not exist in the port yet; each operator
+runs its PyTorch calls eagerly, batch by batch.
+"""
+from __future__ import annotations
+
+from typing import Dict, Iterator, List, Sequence, Union
+
+import numpy as np
+import torch
+
+from ..columnar import Column, ColumnarBatch, bucket_rows
+from ..config import MAX_READER_BATCH_SIZE_ROWS
+from ..ops import expressions as E
+from ..types import Schema, StructField
+from .base import ExecContext, ExecNode
+
+
+def _pred_keep(col: Column) -> torch.Tensor:
+    """A null predicate filters the row out (SQL WHERE semantics)."""
+    return col.valid & col.data
+
+
+class TpuScanMemoryExec(ExecNode):
+    """Scan of a table that already lives on the device (one batch at the
+    table's capacity), cut into batches of at most
+    `spark.rapids.sql.reader.batchSizeRows` rows."""
+
+    def __init__(self, table: ColumnarBatch, num_rows: int):
+        super().__init__()
+        self.table = table
+        self.num_rows = num_rows
+
+    @property
+    def schema(self):
+        return self.table.schema
+
+    def execute(self, ctx: ExecContext) -> Iterator[ColumnarBatch]:
+        limit = max(1, ctx.conf.get(MAX_READER_BATCH_SIZE_ROWS))
+        n = self.num_rows
+        if n <= limit:
+            yield self.table
+            return
+        for off in range(0, n, limit):
+            cnt = min(limit, n - off)
+            cap = bucket_rows(cnt)
+            cols = []
+            for c in self.table.columns:
+                def part(t):
+                    out = torch.zeros((cap,) + tuple(t.shape[1:]),
+                                      dtype=t.dtype, device=t.device)
+                    out[:cnt] = t[off:off + cnt]
+                    return out
+                cols.append(Column(part(c.data), part(c.valid), c.dtype,
+                                   part(c.lengths) if c.dtype.is_string
+                                   else None))
+            sel = torch.arange(cap, device=self.table.device) < cnt
+            yield ColumnarBatch(cols, sel, self.table.schema)
+
+
+class TpuProjectExec(ExecNode):
+    def __init__(self, exprs: Sequence[E.Expression], names: Sequence[str],
+                 child: ExecNode):
+        super().__init__(child)
+        self.exprs = list(exprs)
+        self._schema = Schema([StructField(n, e.dtype)
+                               for n, e in zip(names, exprs)])
+
+    @property
+    def schema(self):
+        return self._schema
+
+    def execute(self, ctx):
+        for batch in self.children[0].execute(ctx):
+            yield ColumnarBatch([e.eval(batch) for e in self.exprs],
+                                batch.sel, self._schema)
+
+
+class TpuFilterExec(ExecNode):
+    def __init__(self, condition: E.Expression, child: ExecNode):
+        super().__init__(child)
+        self.condition = condition
+
+    @property
+    def schema(self):
+        return self.children[0].schema
+
+    def execute(self, ctx):
+        for batch in self.children[0].execute(ctx):
+            yield batch.filter(_pred_keep(self.condition.eval(batch)))
+
+
+class DeviceToHostExec(ExecNode):
+    """The device-to-host edge: live rows of every batch, copied to the
+    host as Python rows or numpy columns."""
+
+    def __init__(self, child: ExecNode):
+        super().__init__(child)
+
+    @property
+    def schema(self):
+        return self.children[0].schema
+
+    def execute_host(self, ctx: ExecContext, rows: bool
+                     ) -> Iterator[Union[List[tuple], Dict[str, np.ndarray]]]:
+        for batch in self.children[0].execute(ctx):
+            yield batch.to_pylist() if rows else batch.to_pydict()

@@ -1,0 +1,192 @@
+"""Logical plan and the unresolved column DSL (port of the slice's part of
+spark_rapids_tpu/plan/logical.py): `col`, `lit`, the arithmetic,
+comparison and boolean operators, `between`, the aggregate functions sum,
+avg, count, min and max, `SortOrder`, and the scan, filter, project,
+aggregate and sort nodes.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Sequence, Tuple
+
+from ..types import Schema
+
+
+class ColumnExpr:
+    """Unresolved expression; analysis resolves it against a child schema."""
+
+    def __init__(self, op: str, args: Tuple = (), alias: Optional[str] = None):
+        self.op = op
+        self.args = args
+        self._alias = alias
+
+    def _bin(self, op, other, flip=False):
+        other = _wrap(other)
+        return ColumnExpr(op, (other, self) if flip else (self, other))
+
+    def __add__(self, o):
+        return self._bin("Add", o)
+
+    def __radd__(self, o):
+        return self._bin("Add", o, flip=True)
+
+    def __sub__(self, o):
+        return self._bin("Subtract", o)
+
+    def __rsub__(self, o):
+        return self._bin("Subtract", o, flip=True)
+
+    def __mul__(self, o):
+        return self._bin("Multiply", o)
+
+    def __rmul__(self, o):
+        return self._bin("Multiply", o, flip=True)
+
+    def __eq__(self, o):  # type: ignore[override]
+        return self._bin("EqualTo", o)
+
+    def __ne__(self, o):  # type: ignore[override]
+        return ColumnExpr("Not", (self._bin("EqualTo", o),))
+
+    def __lt__(self, o):
+        return self._bin("LessThan", o)
+
+    def __le__(self, o):
+        return self._bin("LessThanOrEqual", o)
+
+    def __gt__(self, o):
+        return self._bin("GreaterThan", o)
+
+    def __ge__(self, o):
+        return self._bin("GreaterThanOrEqual", o)
+
+    def __and__(self, o):
+        return self._bin("And", o)
+
+    def __or__(self, o):
+        return self._bin("Or", o)
+
+    def __invert__(self):
+        return ColumnExpr("Not", (self,))
+
+    def __hash__(self):
+        return id(self)
+
+    def alias(self, name: str) -> "ColumnExpr":
+        return ColumnExpr(self.op, self.args, alias=name)
+
+    def between(self, lo, hi) -> "ColumnExpr":
+        return (self >= lo) & (self <= hi)
+
+    @property
+    def output_name(self) -> str:
+        if self._alias:
+            return self._alias
+        if self.op == "col":
+            return self.args[0]
+        return self.op.lower()
+
+    def __repr__(self):
+        if self.op in ("col", "lit"):
+            return f"{self.op}({self.args[0]!r})"
+        return f"{self.op}({', '.join(map(repr, self.args))})"
+
+    def __bool__(self):
+        raise TypeError("Cannot convert ColumnExpr to bool; use & | ~")
+
+
+def _wrap(v) -> ColumnExpr:
+    return v if isinstance(v, ColumnExpr) else ColumnExpr("lit", (v,))
+
+
+def col(name: str) -> ColumnExpr:
+    return ColumnExpr("col", (name,))
+
+
+def lit(v) -> ColumnExpr:
+    return ColumnExpr("lit", (v,))
+
+
+@dataclasses.dataclass
+class SortOrder:
+    child: ColumnExpr
+    ascending: bool = True
+    nulls_first: Optional[bool] = None  # default: first if asc, last if desc
+
+    @property
+    def effective_nulls_first(self) -> bool:
+        return self.ascending if self.nulls_first is None else self.nulls_first
+
+
+class functions:
+    """The aggregate functions of spark.sql.functions the slice has."""
+
+    col = staticmethod(col)
+    lit = staticmethod(lit)
+
+    @staticmethod
+    def sum(e):
+        return ColumnExpr("Sum", (_wrap(e),))
+
+    @staticmethod
+    def avg(e):
+        return ColumnExpr("Average", (_wrap(e),))
+
+    @staticmethod
+    def min(e):
+        return ColumnExpr("Min", (_wrap(e),))
+
+    @staticmethod
+    def max(e):
+        return ColumnExpr("Max", (_wrap(e),))
+
+    @staticmethod
+    def count(e):
+        return ColumnExpr("Count", (_wrap(e),))
+
+
+# --------------------------------------------------------------------------
+# logical plan nodes
+# --------------------------------------------------------------------------
+
+class LogicalPlan:
+    children: Tuple["LogicalPlan", ...] = ()
+
+    def __repr__(self):
+        return type(self).__name__
+
+
+class LogicalScan(LogicalPlan):
+    """An in-memory table already on the device (a ColumnarBatch)."""
+
+    def __init__(self, table, num_rows: int, schema: Schema):
+        self.table = table
+        self.num_rows = num_rows
+        self.schema = schema
+
+
+class LogicalProject(LogicalPlan):
+    def __init__(self, exprs: Sequence[ColumnExpr], child: LogicalPlan):
+        self.exprs = list(exprs)
+        self.children = (child,)
+
+
+class LogicalFilter(LogicalPlan):
+    def __init__(self, condition: ColumnExpr, child: LogicalPlan):
+        self.condition = condition
+        self.children = (child,)
+
+
+class LogicalAggregate(LogicalPlan):
+    def __init__(self, grouping: Sequence[ColumnExpr],
+                 aggregates: Sequence[ColumnExpr], child: LogicalPlan):
+        self.grouping = list(grouping)
+        self.aggregates = list(aggregates)
+        self.children = (child,)
+
+
+class LogicalSort(LogicalPlan):
+    def __init__(self, orders: Sequence[SortOrder], child: LogicalPlan):
+        self.orders = [o if isinstance(o, SortOrder) else SortOrder(o)
+                       for o in orders]
+        self.children = (child,)
