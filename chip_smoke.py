@@ -2,29 +2,30 @@
 """Smoke run of the PyTorch/CUDA port (spark_rapids_tpu_torch) on one
 NVIDIA card.
 
-    python3 chip_smoke.py [--sf 10]
+    python3 chip_smoke.py
 
 Phases, each printing a line:
   1. device: the card's name and power limit (nvidia-smi), then the
      kernels' build from csrc/ (one nvcc per source, in parallel);
   2. kernels: K1 (segmented scan), K2 (prefix sum) and K3 (word sort),
-     each on the card at the shapes the query phase gives it, held
+     each on the card at the shapes the query phase gives it (the 2^26
+     batch capacity, and K3 also at 1024, the order-by's capacity), held
      against its plain PyTorch version on the same inputs and timed
      beside it, beside one PyTorch library call where one computes the
      same function, and beside its bound;
-  3. queries: TPC-H lineitem at scale factor --sf (60 M rows at 10, one
-     2^26-row batch: phase 2 runs at that capacity), generated on the
-     host from seed 42; q1, q6 and q18's inner lineitem aggregate through
-     TpuSession(device="cuda"), each compared with a numpy oracle; the
-     launch counts of that first run show the queries went through all
-     three kernels; then warm wall times, and one more warm run under
+  3. queries: TPC-H lineitem at SF10 (60 M rows, one 2^26-row batch),
+     generated on the host from seed 42; q1, q6 and q18's inner lineitem
+     aggregate through TpuSession(device="cuda"), each compared with a
+     numpy oracle; the launch counts of that first run show the queries
+     went through all three kernels, and every shape a kernel was
+     launched at there that phase 2 did not cover is held against the
+     plain version too; then warm wall times, and one more warm run under
      torch.profiler for the device's busy share and its costliest
      kernels.
 The second-last line is the card as nvidia-smi names it; the last is
 {"ok": true, "device": {...}}.  Any failure raises: nothing is caught,
 and the script prints no result line without a CUDA device.
 """
-import argparse
 import json
 import statistics
 import subprocess
@@ -38,18 +39,12 @@ from spark_rapids_tpu_torch.columnar import bucket_rows
 from spark_rapids_tpu_torch.exec.aggregate import TpuHashAggregateExec
 from spark_rapids_tpu_torch.ops import kernels as K
 
+SF = 10.0                  # TPC-H scale factor of the query phase
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (data sheet)
-SUM_REL_TOL = 1e-12        # float sums: same terms, another order
+# float sums: same terms, another order
+SUM_REL_TOL = {torch.float64: 1e-12, torch.float32: 1e-4}
 REPS = 3                   # warm runs of each query
-
-KERNEL_INFO = {
-    "seg_scan": ("spark_rapids_tpu_torch/csrc/seg_scan.cu",
-                 "spark_rapids_tpu/ops/pallas_kernels.py:151"),
-    "cumsum": ("spark_rapids_tpu_torch/csrc/cumsum.cu",
-               "spark_rapids_tpu/ops/pallas_kernels.py:63"),
-    "sort_words": ("spark_rapids_tpu_torch/csrc/bitonic_sort.cu",
-                   "spark_rapids_tpu/ops/pallas_kernels.py:262"),
-}
+ORDER_BY_CAP = 1024        # capacity of q1's bucket state and q18's result
 
 
 def card_line() -> str:
@@ -78,11 +73,25 @@ def bound_ms(nbytes: int) -> float:
     return nbytes / HBM_BYTES_PER_S * 1e3
 
 
-def check_kernels(gen: torch.Generator, dev: torch.device, n: int) -> dict:
-    """Every kernel against its plain version on the card, at n rows;
-    returns the per-kernel numbers of the shape the query phase leans
-    on."""
-    report = {}
+def phase2_shapes(cap: int) -> list:
+    """The (kernel, shape) pairs phase 2 checks: every kernel at the batch
+    capacity (K1 at the dtypes and ops the aggregates give it), and K3
+    also at the capacity the order-bys sort.  A shape is what the wrapper
+    notes in its `shapes` set."""
+    return ([("sort_words", (cap, torch.int64)),
+             ("sort_words", (ORDER_BY_CAP, torch.int64)),
+             ("cumsum", (cap, torch.int64))]
+            + [("seg_scan", (cap, dt, op))
+               for dt, ops in ((torch.float64, ("sum", "min", "max")),
+                               (torch.int64, ("min", "max")))
+               for op in ops])
+
+
+def check_kernels(gen: torch.Generator, dev: torch.device, shapes: list,
+                  report: dict) -> None:
+    """Every (kernel, shape) in `shapes` against its plain version on the
+    card.  `report` keeps, per kernel, the numbers of the first shape
+    checked (the batch capacity) and the largest error of all."""
 
     def record(kernel, config, got, want, kernel_fn, plain_fn, library_fn,
                nbytes, exact):
@@ -99,7 +108,7 @@ def check_kernels(gen: torch.Generator, dev: torch.device, n: int) -> dict:
             err = float(diff.max()) if diff.numel() else 0.0
             rel = float((diff / want[m].abs().clamp_min(1e-300)).max()) \
                 if diff.numel() else 0.0
-            ok = nan_ok and rel <= SUM_REL_TOL
+            ok = nan_ok and rel <= SUM_REL_TOL[got.dtype]
         row = {"kernel": kernel, "config": config,
                "ms": time_ms(kernel_fn), "plain_ms": time_ms(plain_fn, 2),
                "library_ms": time_ms(library_fn) if library_fn else None,
@@ -113,57 +122,70 @@ def check_kernels(gen: torch.Generator, dev: torch.device, n: int) -> dict:
         report[kernel]["max_abs_err"] = max(report[kernel]["max_abs_err"],
                                             err)
 
-    # K3: the packed grouping sort's words (row id in the low bits), with
-    # the top bit set on about half of them
-    hi = torch.randint(-(1 << 31), 1 << 31, (n,), dtype=torch.int64,
-                       device=dev, generator=gen)
-    lo = torch.randint(0, 1 << 32, (n,), dtype=torch.int64, device=dev,
-                       generator=gen)
-    w = (hi << 32) | lo
-    del hi, lo
-    record("sort_words", f"n={n} int64 words, top bit set on half",
-           K.sort_words(w), K.sort_words_plain(w),
-           lambda: K.sort_words(w), lambda: K.sort_words_plain(w),
-           lambda: torch.sort(w), 16 * n, exact=True)
-    del w
+    def sort_words(n, dtype):
+        # the packed sort's words: key bits above the row id in the low
+        # log2(n) bits, the top bit set on about half of them
+        hi = torch.randint(-(1 << 31), 1 << 31, (n,), dtype=dtype,
+                           device=dev, generator=gen)
+        lo = torch.randint(0, 1 << 32, (n,), dtype=dtype, device=dev,
+                           generator=gen)
+        w = (((hi << 32) | lo) & -n) | torch.arange(n, dtype=dtype,
+                                                    device=dev)
+        del hi, lo
+        record("sort_words", f"n={n} {dtype} words, row id in the low "
+               f"bits, top bit set on half",
+               K.sort_words(w), K.sort_words_plain(w),
+               lambda: K.sort_words(w), lambda: K.sort_words_plain(w),
+               lambda: torch.sort(w), 16 * n, exact=True)
 
-    # K2: int64 counts and sums whose running total wraps
-    v = torch.randint(1 << 60, 1 << 62, (n,), dtype=torch.int64, device=dev,
-                      generator=gen)
-    record("cumsum", f"n={n} int64, wraps", K.cumsum(v), K.cumsum_plain(v),
-           lambda: K.cumsum(v), lambda: K.cumsum_plain(v),
-           lambda: torch.cumsum(v, 0), 16 * n, exact=True)
-    del v
+    def cumsum(n, dtype):
+        # counts and sums whose running total wraps
+        top = torch.iinfo(dtype).max
+        v = torch.randint(top // 8, top // 2, (n,), dtype=dtype, device=dev,
+                          generator=gen)
+        record("cumsum", f"n={n} {dtype}, wraps", K.cumsum(v),
+               K.cumsum_plain(v), lambda: K.cumsum(v),
+               lambda: K.cumsum_plain(v), lambda: torch.cumsum(v, 0),
+               2 * n * v.element_size(), exact=True)
 
-    # K1: f64 sum/min/max with NaNs and int64 min/max, over ascending
-    # group ids at ~15 M groups (q18's orders) and at 4 groups (q1's)
-    for groups in (15_000_000, 4):
-        gid = torch.sort(torch.randint(0, groups, (n,), device=dev,
-                                       generator=gen)).values.to(torch.int32)
-        # positive values like the prices the queries sum, so a relative
-        # tolerance holds for every running value
-        f = torch.rand(n, dtype=torch.float64, device=dev,
-                       generator=gen) * 1e5 + 1.0
-        f[torch.rand(n, device=dev, generator=gen) < 1e-6] = float("nan")
-        i = torch.randint(-(1 << 62), 1 << 62, (n,), dtype=torch.int64,
-                          device=dev, generator=gen)
-        for vals, ops in ((f, ("sum", "min", "max")), (i, ("min", "max"))):
-            for op in ops:
-                config = (f"n={n} {groups} groups {vals.dtype} {op}"
-                          + (" NaN 1e-6" if vals.is_floating_point() else ""))
-                record("seg_scan", config, K.seg_scan(gid, vals, op),
-                       K.seg_scan_plain(gid, vals, op),
-                       lambda: K.seg_scan(gid, vals, op),
-                       lambda: K.seg_scan_plain(gid, vals, op), None,
-                       n * (4 + 2 * vals.element_size()),
-                       exact=not (op == "sum" and vals.is_floating_point()))
-        del gid, f, i
-    return report
+    def seg_scan(n, dtype, op):
+        # ascending group ids at about four rows a group (q18's orders)
+        # and at 4 groups (q1's)
+        for groups in (max(1, n // 4), 4):
+            gid = torch.sort(torch.randint(0, groups, (n,), device=dev,
+                                           generator=gen)).values
+            gid = gid.to(torch.int32)
+            if dtype.is_floating_point:
+                # positive values like the prices the queries sum, so a
+                # relative tolerance holds for every running value
+                v = (torch.rand(n, dtype=torch.float64, device=dev,
+                                generator=gen) * 1e5 + 1.0).to(dtype)
+                nan_p = max(1e-6, 4 / n)
+                v[torch.rand(n, device=dev, generator=gen) < nan_p] = \
+                    float("nan")
+                extra = f" NaN p={nan_p:g}"
+            else:
+                info = torch.iinfo(dtype)
+                v = torch.randint(info.min // 2, info.max // 2, (n,),
+                                  dtype=dtype, device=dev, generator=gen)
+                extra = ""
+            record("seg_scan", f"n={n} {groups} groups {dtype} {op}{extra}",
+                   K.seg_scan(gid, v, op), K.seg_scan_plain(gid, v, op),
+                   lambda: K.seg_scan(gid, v, op),
+                   lambda: K.seg_scan_plain(gid, v, op), None,
+                   n * (4 + 2 * v.element_size()),
+                   exact=not (op == "sum" and dtype.is_floating_point))
+
+    checks = {"sort_words": sort_words, "cumsum": cumsum,
+              "seg_scan": seg_scan}
+    for kernel, shape in shapes:
+        checks[kernel](*shape)
 
 
-def run_queries(table: dict, device: str = "cuda") -> dict:
+def run_queries(table: dict, device: str = "cuda") -> tuple:
     """The three queries on the card against the numpy oracle; returns
-    the kernel launch counts of their first run."""
+    the kernel launch counts of their first run and the shapes each
+    kernel was launched at there."""
     t0 = time.perf_counter()
     s = TpuSession({"spark.rapids.sql.variableFloatAgg.enabled": "true"},
                    device=device)
@@ -184,6 +206,8 @@ def run_queries(table: dict, device: str = "cuda") -> dict:
         own = {k: c - before[k] for k, c in K.launch_counts().items()}
         first[name] = (ms, got, _update_paths(s.last_plan), own)
     launches = K.launch_counts()
+    shapes = [(k.__name__, shape) for k in K.KERNELS
+              for shape in sorted(k.shapes, key=lambda s: (-s[0], str(s)))]
     peak = torch.cuda.max_memory_allocated()
     for name, (ms, got, paths, own) in first.items():
         want = tpch.ORACLES[name](table)
@@ -204,11 +228,14 @@ def run_queries(table: dict, device: str = "cuda") -> dict:
                                  f"{got[:3]} vs {want[:3]}")
     print("launches in the query phase " + json.dumps(launches)
           + f" peak_device_bytes={peak}", flush=True)
+    print("shapes launched in the query phase "
+          + json.dumps([[k, [str(x) for x in s]] for k, s in shapes]),
+          flush=True)
     missing = [k for k, c in launches.items() if c == 0]
     if missing:
         raise AssertionError(f"kernels never launched by the queries: "
                              f"{missing}")
-    return launches
+    return launches, shapes
 
 
 def profile_query(q, li, top: int = 8) -> dict:
@@ -245,10 +272,6 @@ def _update_paths(node):
 
 
 def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--sf", type=float, default=10.0,
-                    help="TPC-H scale factor of the query phase")
-    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this needs "
               "an NVIDIA card", file=sys.stderr)
@@ -260,21 +283,31 @@ def main() -> int:
           flush=True)
 
     t0 = time.perf_counter()
-    table = tpch.generate_lineitem(args.sf)
+    table = tpch.generate_lineitem(SF)
     cap = bucket_rows(len(table["l_orderkey"]))
-    print(f"lineitem: sf={args.sf}, generated on the host in "
+    print(f"lineitem: sf={SF}, generated on the host in "
           f"{time.perf_counter() - t0:.3f} s", flush=True)
 
     gen = torch.Generator(device="cuda").manual_seed(42)
-    report = check_kernels(gen, torch.device("cuda"), cap)
+    dev = torch.device("cuda")
+    report = {}
+    checked = phase2_shapes(cap)
+    check_kernels(gen, dev, checked, report)
     torch.cuda.empty_cache()
-    launches = run_queries(table)
+    launches, shapes = run_queries(table)
+    torch.cuda.empty_cache()
+    rest = [ks for ks in shapes if ks not in checked]
+    print(f"kernels: {len(shapes) - len(rest)} of the query phase's "
+          f"{len(shapes)} launch shapes were checked in phase 2; checking "
+          f"the other {len(rest)}", flush=True)
+    check_kernels(gen, dev, rest, report)
 
     kernels = []
-    for name, row in report.items():
-        src, replaces = KERNEL_INFO[name]
-        kernels.append({"name": name, "route": "cuda", "source": src,
-                        "replaces": replaces, "launches": launches[name],
+    for k in K.KERNELS:
+        row = report[k.__name__]
+        kernels.append({"name": k.__name__, "route": "cuda",
+                        "source": k.source, "replaces": k.replaces,
+                        "launches": launches[k.__name__],
                         "max_abs_err": row["max_abs_err"], "ms": row["ms"],
                         "plain_ms": row["plain_ms"],
                         "bound_ms": row["bound_ms"], "bound_by": "bytes",

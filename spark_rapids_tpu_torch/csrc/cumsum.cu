@@ -68,7 +68,8 @@ static int launch(const void* x, void* out, void* scratch, long long n,
 }
 
 // x, out: n elements of `elem_bytes` (4: int32, 8: int64); scratch: one
-// element per 1024-row block.  Returns the CUDA error code (0 = launched).
+// element per SCAN_BLOCK-row block (srt_scan_block()).  Returns the CUDA
+// error code (0 = launched).
 extern "C" int srt_cumsum(const void* x, void* out, void* scratch,
                           long long n, int elem_bytes, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;

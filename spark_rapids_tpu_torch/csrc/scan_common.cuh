@@ -8,6 +8,10 @@
 #define SCAN_BLOCK 1024
 #define FULL_MASK 0xffffffffu
 
+// Rows per block, read once by the caller that sizes the per-block
+// scratch, so the block size is set in this one place.
+extern "C" int srt_scan_block(void) { return SCAN_BLOCK; }
+
 // ---- element arithmetic --------------------------------------------------
 // Integer sums are taken in the unsigned type of the same width: signed
 // overflow is undefined in C++, and the result must wrap modulo 2^bits

@@ -107,8 +107,8 @@ static int dispatch_op(int op, const int* gid, const void* v, void* out,
 
 // gid: n int32, ascending.  v, out: n values of type `dtype` (0: int32,
 // 1: int64, 2: float32, 3: float64).  op: 0 sum, 1 min, 2 max.
-// carry_g / carry_v: one entry per 1024-row block.  Returns the CUDA
-// error code (0 = launched).
+// carry_g / carry_v: one entry per SCAN_BLOCK-row block (srt_scan_block()).
+// Returns the CUDA error code (0 = launched).
 extern "C" int srt_seg_scan(const void* gid, const void* v, void* out,
                             void* carry_g, void* carry_v, long long n,
                             int dtype, int op, void* stream) {

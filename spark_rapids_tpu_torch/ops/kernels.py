@@ -3,7 +3,10 @@ and the build that turns `csrc/*.cu` into shared libraries.
 
 Each wrapper takes the plain version for a tensor that lies on the CPU
 and launches its CUDA kernel for a tensor on the card; there is no other
-path.  Every launch adds one to the wrapper's `launches` count.
+path.  Every launch adds one to the wrapper's `launches` count and notes
+its shape (length, dtype, op) in the wrapper's `shapes` set.  Each
+wrapper also names its `source` under csrc/ and the TPU kernel it
+`replaces`.
 
   * K1 `seg_scan` (csrc/seg_scan.cu) replaces pallas_kernels.seg_agg_1d:
     segmented inclusive running sum/min/max over ascending group ids.
@@ -46,10 +49,11 @@ _LIBS = {
     "bitonic_sort": ("bitonic_sort.cu", "srt_bitonic_sort",
                      [_P, _P, _N, _P]),
 }
+_SCAN_SOURCES = ("seg_scan.cu", "cumsum.cu")  # built on scan_common.cuh
 _FUNCS: Dict[str, ctypes._CFuncPtr] = {}
+# rows per CUDA block of K1/K2, as the library reports it (srt_scan_block)
+_SCAN_BLOCK: Dict[str, int] = {}
 _BUILD_LOCK = threading.Lock()
-
-SCAN_BLOCK = 1024  # rows per block of K1/K2 (csrc/scan_common.cuh)
 
 
 def _nvcc() -> str:
@@ -101,10 +105,13 @@ def build() -> float:
                 os.replace(tmp, path)
         if failed:
             raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
-        for name, (_src, fn_name, argtypes) in _LIBS.items():
-            fn = getattr(ctypes.CDLL(_lib_path(name)), fn_name)
+        for name, (src, fn_name, argtypes) in _LIBS.items():
+            lib = ctypes.CDLL(_lib_path(name))
+            fn = getattr(lib, fn_name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
+            if src in _SCAN_SOURCES:
+                _SCAN_BLOCK[name] = lib.srt_scan_block()
             _FUNCS[name] = fn
     return time.perf_counter() - t0
 
@@ -113,6 +120,22 @@ def _func(name: str):
     if name not in _FUNCS:
         build()
     return _FUNCS[name]
+
+
+def _blocks(name: str, n: int) -> int:
+    """CUDA blocks (one scratch entry each) that K1/K2 use for n rows."""
+    _func(name)
+    return -(-n // _SCAN_BLOCK[name])
+
+
+def _kernel(fn, lib: str, replaces: str):
+    """Mark `fn` as the wrapper of the kernel in _LIBS[lib]."""
+    fn.launches = 0
+    fn.shapes = set()
+    fn.source = os.path.relpath(os.path.join(CSRC, _LIBS[lib][0]),
+                                os.path.dirname(_PKG))
+    fn.replaces = replaces
+    return fn
 
 
 def _on_card(x: torch.Tensor, what: str, dtypes: Sequence[torch.dtype]
@@ -157,16 +180,18 @@ def cumsum(v: torch.Tensor) -> torch.Tensor:
     out = torch.empty_like(v)
     if n == 0:
         return out
-    scratch = torch.empty(-(-n // SCAN_BLOCK), dtype=v.dtype, device=v.device)
+    scratch = torch.empty(_blocks("cumsum", n), dtype=v.dtype,
+                          device=v.device)
     with torch.cuda.device(v.device):
         _check(_func("cumsum")(v.data_ptr(), out.data_ptr(),
                                scratch.data_ptr(), n, v.element_size(),
                                _stream(v)), "cumsum")
     cumsum.launches += 1
+    cumsum.shapes.add((n, v.dtype))
     return out
 
 
-cumsum.launches = 0
+_kernel(cumsum, "cumsum", "spark_rapids_tpu/ops/pallas_kernels.py:63")
 
 
 # --------------------------------------------------------------------------
@@ -217,7 +242,7 @@ def seg_scan(gid: torch.Tensor, vals: torch.Tensor, op: str) -> torch.Tensor:
     out = torch.empty_like(vals)
     if n == 0:
         return out
-    nb = -(-n // SCAN_BLOCK)
+    nb = _blocks("seg_scan", n)
     carry_g = torch.empty(nb, dtype=torch.int32, device=vals.device)
     carry_v = torch.empty(nb, dtype=vals.dtype, device=vals.device)
     with torch.cuda.device(vals.device):
@@ -227,10 +252,11 @@ def seg_scan(gid: torch.Tensor, vals: torch.Tensor, op: str) -> torch.Tensor:
                                  _SEG_DTYPES[vals.dtype], SEG_OPS.index(op),
                                  _stream(vals)), "seg_scan")
     seg_scan.launches += 1
+    seg_scan.shapes.add((n, vals.dtype, op))
     return out
 
 
-seg_scan.launches = 0
+_kernel(seg_scan, "seg_scan", "spark_rapids_tpu/ops/pallas_kernels.py:151")
 
 
 # --------------------------------------------------------------------------
@@ -260,17 +286,21 @@ def sort_words(words: torch.Tensor) -> torch.Tensor:
         _check(_func("bitonic_sort")(words.data_ptr(), out.data_ptr(), n,
                                      _stream(words)), "sort_words")
     sort_words.launches += 1
+    sort_words.shapes.add((n, words.dtype))
     return out
 
 
-sort_words.launches = 0
+_kernel(sort_words, "bitonic_sort",
+        "spark_rapids_tpu/ops/pallas_kernels.py:262")
 
 KERNELS = (seg_scan, cumsum, sort_words)
 
 
 def reset_launches() -> None:
+    """Set every launch count to 0 and forget the shapes launched."""
     for k in KERNELS:
         k.launches = 0
+        k.shapes.clear()
 
 
 def launch_counts() -> Dict[str, int]:

@@ -90,6 +90,9 @@ def test_launch_counters_count_launches(dev):
     K.cumsum(x.cpu())  # the plain version launches nothing
     assert K.launch_counts() == {"seg_scan": 1, "cumsum": 1,
                                  "sort_words": 1}
+    assert K.seg_scan.shapes == {(4096, torch.int64, "max")}
+    assert K.cumsum.shapes == {(4096, torch.int64)}
+    assert K.sort_words.shapes == {(4096, torch.int64)}
 
 
 def test_queries_on_card_match_cpu(dev):

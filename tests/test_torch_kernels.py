@@ -6,6 +6,9 @@ interpret mode as tests/test_pallas.py runs it; the 64-bit grouping
 hashes and the packed argsort must agree bit for bit.  Inputs are made
 with numpy from a seed and handed to both packages.
 """
+import inspect
+import pathlib
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -117,6 +120,24 @@ def test_kernel_wrappers_take_plain_version_on_cpu():
     K.seg_scan(torch.zeros(1024, dtype=torch.int32), x, "sum")
     assert K.launch_counts() == {"seg_scan": 0, "cumsum": 0,
                                  "sort_words": 0}
+    assert all(not k.shapes for k in K.KERNELS)
+
+
+@pytest.mark.parametrize("kernel,tpu_kernel", [
+    (K.seg_scan, PK.seg_agg_1d), (K.cumsum, PK.cumsum_1d),
+    (K.sort_words, PK.bitonic_sort_u64)], ids=lambda k: k.__name__)
+def test_kernel_wrapper_names_its_source_and_tpu_kernel(kernel, tpu_kernel):
+    """`source` is the CUDA file in the repo; `replaces` is the file:line
+    where the Pallas function it ports is defined."""
+    root = pathlib.Path(__file__).resolve().parents[1]
+    assert (root / kernel.source).is_file()
+    assert kernel.source.startswith("spark_rapids_tpu_torch/csrc/")
+    path, line = kernel.replaces.rsplit(":", 1)
+    src, first = inspect.getsourcelines(tpu_kernel)
+    assert (root / path).resolve() == pathlib.Path(
+        inspect.getsourcefile(tpu_kernel)).resolve()
+    assert int(line) == first and src[0].startswith(
+        f"def {tpu_kernel.__name__}(")
 
 
 # --------------------------------------------------------------------------
