@@ -9,10 +9,13 @@ Phases, each printing a line:
      kernels' build from csrc/ (one nvcc per source, in parallel);
   2. kernels: K1 (segmented scan), K2 (prefix sum) and K3 (word sort),
      each on the card at the shapes the query phase gives it (the 2^26
-     batch capacity, and K3 also at 1024, the order-by's capacity), held
-     against its plain PyTorch version on the same inputs and timed
-     beside it, beside one PyTorch library call where one computes the
-     same function, and beside its bound;
+     batch capacity; K3 at each bit range of q18's grouping, at all 64
+     bits, and at 1024, the order-by's capacity; K2 also at int32 and at
+     a length that is not a multiple of its tile), on K3's hard inputs
+     too (one digit bucket, the top bit set), held against its plain
+     PyTorch version on the same inputs and timed beside it, beside one
+     PyTorch library call where one computes the same function, and
+     beside its bound;
   3. queries: TPC-H lineitem at SF10 (60 M rows, one 2^26-row batch),
      generated on the host from seed 42; q1, q6 and q18's inner lineitem
      aggregate through TpuSession(device="cuda"), each compared with a
@@ -73,14 +76,30 @@ def bound_ms(nbytes: int) -> float:
     return nbytes / HBM_BYTES_PER_S * 1e3
 
 
+def grouping_bits(cap: int, key_bits: int = 128) -> list:
+    """The bit ranges the packed argsort hands K3 when it groups `cap`
+    rows by `key_bits` of hash (q18's two 64-bit hashes): the row id
+    fills the low r = log2(cap) bits, each pass sorts up to 64 - r key
+    bits above it."""
+    r = cap.bit_length() - 1
+    widths = [min(64 - r, key_bits - start)
+              for start in range(0, key_bits, 64 - r)]
+    return sorted({(r, r + w) for w in widths}, key=lambda b: -b[1])
+
+
 def phase2_shapes(cap: int) -> list:
-    """The (kernel, shape) pairs phase 2 checks: every kernel at the batch
-    capacity (K1 at the dtypes and ops the aggregates give it), and K3
-    also at the capacity the order-bys sort.  A shape is what the wrapper
-    notes in its `shapes` set."""
-    return ([("sort_words", (cap, torch.int64)),
-             ("sort_words", (ORDER_BY_CAP, torch.int64)),
-             ("cumsum", (cap, torch.int64))]
+    """The (kernel, shape) pairs phase 2 checks: K3 at the batch capacity
+    for each bit range of q18's grouping and for all 64 bits (the radix
+    route), and at the capacity the order-bys sort (the tile route); K2
+    at int64 and int32, at the capacity and at a length that is not a
+    multiple of its tile; K1 at the dtypes and ops the aggregates give
+    it.  A shape is what the wrapper notes in its `shapes` set."""
+    r_ob = ORDER_BY_CAP.bit_length() - 1
+    return ([("sort_words", (cap, torch.int64) + b)
+             for b in grouping_bits(cap) + [(0, 64)]]
+            + [("sort_words", (ORDER_BY_CAP, torch.int64, r_ob, 64))]
+            + [("cumsum", (n, dt)) for n in (cap, cap + 7)
+               for dt in (torch.int64, torch.int32)]
             + [("seg_scan", (cap, dt, op))
                for dt, ops in ((torch.float64, ("sum", "min", "max")),
                                (torch.int64, ("min", "max")))
@@ -122,21 +141,40 @@ def check_kernels(gen: torch.Generator, dev: torch.device, shapes: list,
         report[kernel]["max_abs_err"] = max(report[kernel]["max_abs_err"],
                                             err)
 
-    def sort_words(n, dtype):
-        # the packed sort's words: key bits above the row id in the low
-        # log2(n) bits, the top bit set on about half of them
-        hi = torch.randint(-(1 << 31), 1 << 31, (n,), dtype=dtype,
-                           device=dev, generator=gen)
-        lo = torch.randint(0, 1 << 32, (n,), dtype=dtype, device=dev,
-                           generator=gen)
-        w = (((hi << 32) | lo) & -n) | torch.arange(n, dtype=dtype,
-                                                    device=dev)
-        del hi, lo
-        record("sort_words", f"n={n} {dtype} words, row id in the low "
-               f"bits, top bit set on half",
-               K.sort_words(w), K.sort_words_plain(w),
-               lambda: K.sort_words(w), lambda: K.sort_words_plain(w),
-               lambda: torch.sort(w), 16 * n, exact=True)
+    def sort_words(n, dtype, lo, hi):
+        # (0, 64): arbitrary words, the top bit set on about half.  Else
+        # the packed sort's words, key bits [lo, hi) above the row id in
+        # the low lo = log2(n) bits: random keys; one key for every word
+        # (every digit of a pass in one bucket); and random keys under
+        # high bits that every word shares and that set the top bit
+        r = n.bit_length() - 1
+        if (lo, hi) != (0, 64) and lo != r:
+            raise ValueError(f"no packed words for n={n} bits={lo, hi}")
+        iota = torch.arange(n, dtype=dtype, device=dev)
+        inputs = []
+        rand = torch.randint(-(1 << 63), (1 << 63) - 1, (n,), dtype=dtype,
+                             device=dev, generator=gen)
+        if (lo, hi) == (0, 64):
+            inputs.append(("arbitrary words", rand))
+        else:
+            mask = (1 << (hi - lo)) - 1 if hi - lo < 64 else -1
+            inputs.append(("random keys" + (", top bit set on half"
+                                            if hi == 64 else ""),
+                           ((rand & mask) << lo) | iota))
+            inputs.append(("one key", (torch.full_like(rand, mask & 0x5A5)
+                                       << lo) | iota))
+            if hi < 64:
+                inputs.append(("random keys under shared top bits",
+                               (-(1 << hi)) | ((rand & mask) << lo)
+                               | iota))
+        del rand, iota
+        for what, w in inputs:
+            record("sort_words", f"n={n} {dtype} bits=({lo}, {hi}) {what}",
+                   K.sort_words(w, (lo, hi)), K.sort_words_plain(w),
+                   lambda: K.sort_words(w, (lo, hi)),
+                   lambda: K.sort_words_plain(w), lambda: torch.sort(w),
+                   16 * n, exact=True)
+        del inputs, w
 
     def cumsum(n, dtype):
         # counts and sums whose running total wraps
@@ -145,7 +183,8 @@ def check_kernels(gen: torch.Generator, dev: torch.device, shapes: list,
                           generator=gen)
         record("cumsum", f"n={n} {dtype}, wraps", K.cumsum(v),
                K.cumsum_plain(v), lambda: K.cumsum(v),
-               lambda: K.cumsum_plain(v), lambda: torch.cumsum(v, 0),
+               lambda: K.cumsum_plain(v),
+               lambda: torch.cumsum(v, 0, dtype=dtype),
                2 * n * v.element_size(), exact=True)
 
     def seg_scan(n, dtype, op):

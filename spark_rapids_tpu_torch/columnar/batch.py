@@ -13,6 +13,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..device import resolve_device
 from ..types import Schema
 from .column import Column, bucket_strlen
 
@@ -175,11 +176,13 @@ def _host_values(values, dtype) -> Tuple[np.ndarray, Optional[np.ndarray]]:
 
 def batch_from_numpy(columns: Sequence[Sequence[np.ndarray]],
                      sel: np.ndarray, schema: Schema,
-                     device="cpu") -> ColumnarBatch:
+                     device="cuda") -> ColumnarBatch:
     """The port's batch from another batch's raw leaves, given as numpy
     arrays: per column (data, valid) or (data, valid, lengths) at the
     batch capacity, plus the `sel` mask.  Carries a ColumnarBatch's state
-    across packages unchanged, so both can be fed the same input."""
+    across packages unchanged, so both can be fed the same input.  Runs on
+    the card unless `device="cpu"` is passed; without a card it raises."""
+    device = resolve_device(device)
     def tensor(a, dtype=None):
         # a copy: the leaves may be read-only views of another package's
         # buffers

@@ -21,6 +21,7 @@ import torch
 
 from .columnar import ColumnarBatch, bucket_rows
 from .config import TpuConf
+from .device import resolve_device
 from .exec.base import ExecContext, ExecNode
 from .exec.basic import DeviceToHostExec
 from .plan import logical as L
@@ -29,18 +30,6 @@ from .plan.physical import convert, plan_schema
 from .types import (BooleanType, ByteType, DataType, DateType, DoubleType,
                     FloatType, IntegerType, LongType, Schema, ShortType,
                     StringType, StructField, TimestampType)
-
-
-def resolve_device(device) -> torch.device:
-    """The session's device; a CUDA device must exist."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "TpuSession(device='cuda') but torch.cuda.is_available() is "
-            "false; pass device='cpu' to run on the CPU")
-    if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"unsupported device {device!r}")
-    return dev
 
 
 _BY_NUMPY = {t.np_dtype: t for t in (BooleanType, ByteType, ShortType,

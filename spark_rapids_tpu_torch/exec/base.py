@@ -20,8 +20,7 @@ class ExecContext:
     """What one execution of a plan shares: the session conf and the
     device every batch lives on."""
 
-    def __init__(self, conf: Optional[TpuConf] = None,
-                 device: torch.device = torch.device("cpu")):
+    def __init__(self, conf: Optional[TpuConf], device: torch.device):
         self.conf = conf if conf is not None else TpuConf()
         self.device = device
 

@@ -4,17 +4,18 @@ and the build that turns `csrc/*.cu` into shared libraries.
 Each wrapper takes the plain version for a tensor that lies on the CPU
 and launches its CUDA kernel for a tensor on the card; there is no other
 path.  Every launch adds one to the wrapper's `launches` count and notes
-its shape (length, dtype, op) in the wrapper's `shapes` set.  Each
-wrapper also names its `source` under csrc/ and the TPU kernel it
-`replaces`.
+its shape (length, dtype, and the op or bit range) in the wrapper's
+`shapes` set.  Each wrapper also names its `source` under csrc/ and the
+TPU kernel it `replaces`.
 
   * K1 `seg_scan` (csrc/seg_scan.cu) replaces pallas_kernels.seg_agg_1d:
     segmented inclusive running sum/min/max over ascending group ids.
   * K2 `cumsum` (csrc/cumsum.cu) replaces pallas_kernels.cumsum_1d:
     inclusive prefix sum of int32/int64, wrapping.
-  * K3 `sort_words` (csrc/bitonic_sort.cu) replaces
+  * K3 `sort_words` (csrc/radix_sort.cu) replaces
     pallas_kernels.bitonic_sort_u64: ascending sort of 64-bit words
-    compared as unsigned (int64 storage), length a power of two.
+    compared as unsigned (int64 storage), length a power of two; an LSD
+    radix sort over the bits the caller names (`bits`).
 
 The kernels are built at first use with one `nvcc` per source, all
 started together, into `_build/` beside this package (a plain C
@@ -30,7 +31,7 @@ import shutil
 import subprocess
 import threading
 import time
-from typing import Dict, List, Sequence
+from typing import Dict, List, Sequence, Tuple
 
 import torch
 
@@ -40,18 +41,22 @@ BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 
-# library name -> (source, C function, argtypes)
+# library name -> (source, C function, argtypes, scratch-size function and
+# its argtypes, or None): the library reports the scratch its launch needs,
+# so sizes live in the CUDA source alone
 _P, _N, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 _LIBS = {
     "seg_scan": ("seg_scan.cu", "srt_seg_scan",
-                 [_P, _P, _P, _P, _P, _N, _I, _I, _P]),
-    "cumsum": ("cumsum.cu", "srt_cumsum", [_P, _P, _P, _N, _I, _P]),
-    "bitonic_sort": ("bitonic_sort.cu", "srt_bitonic_sort",
-                     [_P, _P, _N, _P]),
+                 [_P, _P, _P, _P, _P, _N, _I, _I, _P], None),
+    "cumsum": ("cumsum.cu", "srt_cumsum", [_P, _P, _P, _N, _I, _P],
+               ("srt_cumsum_scratch_bytes", [_N, _I])),
+    "radix_sort": ("radix_sort.cu", "srt_radix_sort",
+                   [_P, _P, _P, _N, _I, _I, _P],
+                   ("srt_radix_scratch_bytes", [_N, _I, _I])),
 }
-_SCAN_SOURCES = ("seg_scan.cu", "cumsum.cu")  # built on scan_common.cuh
 _FUNCS: Dict[str, ctypes._CFuncPtr] = {}
-# rows per CUDA block of K1/K2, as the library reports it (srt_scan_block)
+_SCRATCH: Dict[str, ctypes._CFuncPtr] = {}
+# rows per CUDA block of K1, as the library reports it (srt_scan_block)
 _SCAN_BLOCK: Dict[str, int] = {}
 _BUILD_LOCK = threading.Lock()
 
@@ -86,7 +91,7 @@ def build() -> float:
             return 0.0
         os.makedirs(BUILD_DIR, exist_ok=True)
         procs = []
-        for name, (src, _fn, _args) in _LIBS.items():
+        for name, (src, *_rest) in _LIBS.items():
             path = _lib_path(name)
             if os.path.exists(path):
                 continue
@@ -105,13 +110,18 @@ def build() -> float:
                 os.replace(tmp, path)
         if failed:
             raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
-        for name, (src, fn_name, argtypes) in _LIBS.items():
+        for name, (src, fn_name, argtypes, scratch) in _LIBS.items():
             lib = ctypes.CDLL(_lib_path(name))
             fn = getattr(lib, fn_name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
-            if src in _SCAN_SOURCES:
+            if scratch is None:  # K1, built on scan_common.cuh
                 _SCAN_BLOCK[name] = lib.srt_scan_block()
+            else:
+                size = getattr(lib, scratch[0])
+                size.argtypes = scratch[1]
+                size.restype = ctypes.c_longlong
+                _SCRATCH[name] = size
             _FUNCS[name] = fn
     return time.perf_counter() - t0
 
@@ -123,9 +133,16 @@ def _func(name: str):
 
 
 def _blocks(name: str, n: int) -> int:
-    """CUDA blocks (one scratch entry each) that K1/K2 use for n rows."""
+    """CUDA blocks (one scratch entry each) that K1 uses for n rows."""
     _func(name)
     return -(-n // _SCAN_BLOCK[name])
+
+
+def _scratch(name: str, device: torch.device, *args: int) -> torch.Tensor:
+    """The scratch bytes the library in _LIBS[name] asks for."""
+    _func(name)
+    return torch.empty(_SCRATCH[name](*args), dtype=torch.uint8,
+                       device=device)
 
 
 def _kernel(fn, lib: str, replaces: str):
@@ -180,8 +197,7 @@ def cumsum(v: torch.Tensor) -> torch.Tensor:
     out = torch.empty_like(v)
     if n == 0:
         return out
-    scratch = torch.empty(_blocks("cumsum", n), dtype=v.dtype,
-                          device=v.device)
+    scratch = _scratch("cumsum", v.device, n, v.element_size())
     with torch.cuda.device(v.device):
         _check(_func("cumsum")(v.data_ptr(), out.data_ptr(),
                                scratch.data_ptr(), n, v.element_size(),
@@ -266,31 +282,45 @@ _kernel(seg_scan, "seg_scan", "spark_rapids_tpu/ops/pallas_kernels.py:151")
 _SIGN = -(1 << 63)
 
 
-def sort_words_plain(words: torch.Tensor) -> torch.Tensor:
+def sort_words_plain(words: torch.Tensor,
+                     bits: Tuple[int, int] = (0, 64)) -> torch.Tensor:
     """Ascending unsigned order of int64-stored words: flip the sign bit,
-    sort as signed, flip back."""
+    sort as signed, flip back.  Sorts whole words and ignores `bits`, so
+    it checks the caller's promise as well as the kernel."""
     return torch.sort(words ^ _SIGN).values ^ _SIGN
 
 
-def sort_words(words: torch.Tensor) -> torch.Tensor:
+def sort_words(words: torch.Tensor,
+               bits: Tuple[int, int] = (0, 64)) -> torch.Tensor:
     """Ascending sort of int64 words compared as unsigned 64-bit values;
-    the length must be a power of two (K3 on the card)."""
+    the length must be a power of two (K3 on the card).
+
+    `bits=(lo, hi)` is the caller's promise: all words agree on bits >= hi,
+    and words that agree on bits >= lo already come in ascending order of
+    bits < lo.  Under it a stable sort on bits [lo, hi) alone, which is
+    what the kernel does, gives the full sort."""
+    lo, hi = bits
+    if not 0 <= lo <= hi <= 64:
+        raise ValueError(f"sort_words: bits {bits} not within 0 <= lo <= "
+                         f"hi <= 64")
     if not _on_card(words, "sort_words", (torch.int64,)):
-        return sort_words_plain(words)
+        return sort_words_plain(words, bits)
     n = words.numel()
     if n == 0 or n & (n - 1):
         raise ValueError(f"sort_words: length {n} is not a power of two")
     words = words.contiguous()
     out = torch.empty_like(words)
+    scratch = _scratch("radix_sort", words.device, n, lo, hi)
     with torch.cuda.device(words.device):
-        _check(_func("bitonic_sort")(words.data_ptr(), out.data_ptr(), n,
-                                     _stream(words)), "sort_words")
+        _check(_func("radix_sort")(words.data_ptr(), out.data_ptr(),
+                                   scratch.data_ptr(), n, lo, hi,
+                                   _stream(words)), "sort_words")
     sort_words.launches += 1
-    sort_words.shapes.add((n, words.dtype))
+    sort_words.shapes.add((n, words.dtype, lo, hi))
     return out
 
 
-_kernel(sort_words, "bitonic_sort",
+_kernel(sort_words, "radix_sort",
         "spark_rapids_tpu/ops/pallas_kernels.py:262")
 
 KERNELS = (seg_scan, cumsum, sort_words)

@@ -11,7 +11,9 @@ a stable LSD radix over (64 - r)-bit chunks, one word sort a pass.
 Words are int64 tensors holding uint64 bit patterns: right shifts are
 made logical by masking, and left shifts, ors and multiplies wrap the
 same way as uint64 arithmetic.  The word sort (`_sort_words`) is kernel
-K3 on the card.
+K3 on the card; it is told which bits hold the pass's key (above them
+every word is zero, below them the row id is already ascending), so it
+sorts only those.
 """
 from __future__ import annotations
 
@@ -50,9 +52,10 @@ def plan_passes(total_bits: int, cap: int) -> int:
     return max(1, -(-total_bits // chunk))
 
 
-def _sort_words(words: torch.Tensor) -> torch.Tensor:
-    """Ascending unsigned sort of distinct int64 words (K3 on the card)."""
-    return sort_words(words)
+def _sort_words(words: torch.Tensor, bits: Tuple[int, int]) -> torch.Tensor:
+    """Ascending unsigned sort of distinct int64 words whose key lies in
+    `bits` (K3 on the card)."""
+    return sort_words(words, bits)
 
 
 def packed_argsort(components: Sequence[Tuple[torch.Tensor, int]],
@@ -87,10 +90,13 @@ def packed_argsort(components: Sequence[Tuple[torch.Tensor, int]],
     zeros = torch.zeros(cap, dtype=torch.int64, device=device)
     words = [w if w is not None else zeros for w in words]
 
+    def width(p: int) -> int:
+        return min(chunk, total - p * chunk)
+
     def extract(p: int) -> torch.Tensor:
-        """Key bits [p*chunk, (p+1)*chunk), counted from the LSB."""
+        """Key bits [p*chunk, p*chunk + width(p)), counted from the LSB."""
         start = p * chunk
-        cw = min(chunk, total - start)
+        cw = width(p)
         lo, sh = start // 64, start % 64
         v = shr(words[lo], sh)
         if sh + cw > 64 and lo + 1 < nwords:
@@ -102,7 +108,7 @@ def packed_argsort(components: Sequence[Tuple[torch.Tensor, int]],
         bits = extract(p)
         if perm is not None:
             bits = bits[perm]
-        s = _sort_words(shl(bits, r) | iota)
+        s = _sort_words(shl(bits, r) | iota, (r, r + width(p)))
         step = (s & _mask(r)).to(torch.int32)
         perm = step if perm is None else perm[step.long()]
     return perm

@@ -20,7 +20,7 @@ from spark_rapids_tpu.types import (DoubleType as JDouble,
 from spark_rapids_tpu_torch.columnar import batch_from_numpy
 from spark_rapids_tpu_torch.exec import aggregate as A
 from spark_rapids_tpu_torch.exec import sort as S
-from spark_rapids_tpu_torch.exec.base import ExecNode
+from spark_rapids_tpu_torch.exec.base import ExecContext, ExecNode
 from spark_rapids_tpu_torch.ops import expressions as E
 from spark_rapids_tpu_torch.ops.aggregates import AggregateExpression
 from spark_rapids_tpu_torch.types import (DoubleType, IntegerType, LongType,
@@ -31,14 +31,20 @@ _PAIRS = [(JLong, LongType), (JInt, IntegerType), (JDouble, DoubleType),
 _PORT_TYPE = {j.name: t for j, t in _PAIRS}
 
 
-def _port_batch(jb: JBatch) -> "batch_from_numpy":
-    """The port's batch holding the JAX batch's leaves, unchanged."""
+def _port_leaves(jb: JBatch):
+    """The JAX batch's leaves, sel mask and schema as batch_from_numpy
+    takes them."""
     schema = Schema([StructField(f.name, _PORT_TYPE[f.dtype.name])
                      for f in jb.schema])
     leaves = [tuple(np.asarray(x) for x in
                     ((c.data, c.valid, c.lengths) if c.dtype.is_string
                      else (c.data, c.valid))) for c in jb.columns]
-    return batch_from_numpy(leaves, np.asarray(jb.sel), schema)
+    return leaves, np.asarray(jb.sel), schema
+
+
+def _port_batch(jb: JBatch) -> "batch_from_numpy":
+    """The port's batch holding the JAX batch's leaves, unchanged."""
+    return batch_from_numpy(*_port_leaves(jb), device="cpu")
 
 
 def _mixed_batch(seed: int, cap: int = 2048, ngroups: int = 40):
@@ -186,3 +192,21 @@ def test_update_merge_finalize_matches_across_batches():
     for wc, gc in zip(want.columns, got.columns):
         wd, gd = np.asarray(wc.data)[live], gc.data.numpy()[live]
         np.testing.assert_allclose(gd, wd, rtol=1e-12)
+
+
+def test_batch_and_exec_context_run_on_the_card_unless_asked(monkeypatch):
+    """batch_from_numpy defaults to the card and, like TpuSession, raises
+    without one unless device="cpu" is passed; ExecContext has no default
+    device at all."""
+    from spark_rapids_tpu_torch import TpuSession
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    args = _port_leaves(_mixed_batch(8, cap=64))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        batch_from_numpy(*args)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        TpuSession()
+    pb = batch_from_numpy(*args, device="cpu")
+    assert pb.sel.device.type == "cpu"
+    with pytest.raises(TypeError):
+        ExecContext(None)
+    assert ExecContext(None, torch.device("cpu")).device.type == "cpu"

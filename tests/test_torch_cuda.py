@@ -30,7 +30,8 @@ def _same(a, b):
 
 
 @pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
-@pytest.mark.parametrize("n", [1, 1000, 1024, 5000, 1 << 20])
+@pytest.mark.parametrize("n", [1, 1000, 1023, 1024, 4097, 5000, 1 << 20,
+                               (1 << 20) + 7])
 def test_cumsum_matches_plain_and_wraps(dev, dtype, n):
     rng = np.random.default_rng(n)
     info = np.iinfo(np.int32 if dtype == torch.int32 else np.int64)
@@ -39,6 +40,31 @@ def test_cumsum_matches_plain_and_wraps(dev, dtype, n):
     got = K.cumsum(v)
     torch.cuda.synchronize()
     assert torch.equal(got.cpu(), K.cumsum_plain(v.cpu()))
+
+
+@pytest.mark.parametrize("offset", [1, 3])
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+def test_cumsum_of_a_view_off_the_vector_boundary(dev, dtype, offset):
+    """A column that starts off a 16-byte boundary takes the row-by-row
+    path in every tile."""
+    v = torch.arange((1 << 20) + 7, dtype=dtype, device=dev)[offset:]
+    assert v.data_ptr() % 16 != 0
+    got = K.cumsum(v)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), K.cumsum_plain(v.cpu()))
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+def test_cumsum_twice_on_one_stream(dev, dtype):
+    """Two launches queued back to back: the second must find its tile
+    counter and flags reset."""
+    n = (1 << 20) + 7
+    v = torch.arange(n, dtype=dtype, device=dev) % 1000 - 300
+    a = K.cumsum(v)
+    b = K.cumsum(v.flip(0).contiguous())
+    torch.cuda.synchronize()
+    assert torch.equal(a.cpu(), K.cumsum_plain(v.cpu()))
+    assert torch.equal(b.cpu(), K.cumsum_plain(v.flip(0).cpu()))
 
 
 @pytest.mark.parametrize("op", ["sum", "min", "max"])
@@ -76,6 +102,50 @@ def test_sort_words_matches_plain(dev, n):
     assert torch.equal(got, K.sort_words_plain(w))
 
 
+def _packed_words(n, cw, keys, gen, dev):
+    """(key << r) | row id with `cw`-bit keys, r = log2(n), as the packed
+    argsort builds its words: random keys, one key for every word (one
+    digit bucket a pass), or keys reaching bit 63."""
+    r = n.bit_length() - 1
+    if keys == "one_bucket":
+        key = torch.full((n,), (1 << cw) - 3, dtype=torch.int64, device=dev)
+    else:
+        key = torch.randint(-(1 << 63), (1 << 63) - 1, (n,),
+                            dtype=torch.int64, device=dev, generator=gen)
+        if cw < 64:
+            key &= (1 << cw) - 1
+    return (key << r) | torch.arange(n, dtype=torch.int64, device=dev)
+
+
+@pytest.mark.parametrize("case", [
+    ("full", "random"), ("to64", "random"), ("to64", "top_bit"),
+    ("to64", "one_bucket"), ("r14", "random"), ("r14", "one_bucket")],
+    ids="-".join)
+@pytest.mark.parametrize("n", [1 << 13, 1 << 20, 1 << 24])
+def test_sort_words_bits_matches_plain(dev, n, case):
+    """The radix route at bits (0, 64) on arbitrary words, and at (r, 64)
+    and (r, r + 14) on the packed argsort's words, exactly as the plain
+    version's full sort."""
+    span, keys = case
+    gen = torch.Generator(device=dev).manual_seed(n + len(span + keys))
+    r = n.bit_length() - 1
+    if span == "full":
+        w = torch.randint(-(1 << 63), (1 << 63) - 1, (n,), dtype=torch.int64,
+                          device=dev, generator=gen)
+        w[::5] = w[0]
+        bits = (0, 64)
+    else:
+        bits = (r, 64) if span == "to64" else (r, r + 14)
+        w = _packed_words(n, bits[1] - r, keys, gen, dev)
+    if keys == "top_bit":
+        assert bool((w < 0).any())
+    before = w.clone()
+    got = K.sort_words(w, bits)
+    torch.cuda.synchronize()
+    assert torch.equal(got, K.sort_words_plain(w))
+    assert torch.equal(w, before)  # the input is left untouched
+
+
 def test_sort_words_rejects_non_power_of_two(dev):
     with pytest.raises(ValueError):
         K.sort_words(torch.zeros(3000, dtype=torch.int64, device=dev))
@@ -92,7 +162,7 @@ def test_launch_counters_count_launches(dev):
                                  "sort_words": 1}
     assert K.seg_scan.shapes == {(4096, torch.int64, "max")}
     assert K.cumsum.shapes == {(4096, torch.int64)}
-    assert K.sort_words.shapes == {(4096, torch.int64)}
+    assert K.sort_words.shapes == {(4096, torch.int64, 0, 64)}
 
 
 def test_queries_on_card_match_cpu(dev):

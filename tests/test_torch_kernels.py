@@ -112,6 +112,103 @@ def test_sort_words_plain_matches_pallas_bitonic(n):
     assert np.array_equal(got, want)
 
 
+def _lsd_by_digits(words: np.ndarray, lo: int, hi: int) -> np.ndarray:
+    """What the radix route of K3 computes: stable passes over the 8-bit
+    digits of bits [lo, hi), least significant first, and nothing else."""
+    w = words.view(np.uint64)
+    for shift in range(lo, hi, 8):
+        width = min(8, hi - shift)
+        digit = (w >> np.uint64(shift)) & np.uint64((1 << width) - 1)
+        w = w[np.argsort(digit, kind="stable")]
+    return w.view(np.int64)
+
+
+def _packed_words(rng, r: int, cw: int, keys: str) -> np.ndarray:
+    """Words as the packed argsort builds them, (key << r) | row id, with
+    keys of `cw` bits: random, all equal (one digit bucket a pass), or
+    with the top bit set on about half."""
+    n = 1 << r
+    if keys == "one_bucket":
+        key = np.full(n, (1 << cw) - 3, dtype=np.uint64)
+    else:
+        key = rng.randint(0, 2**62, n).astype(np.uint64) \
+            | (rng.randint(0, 4, n).astype(np.uint64) << np.uint64(62))
+        key &= np.uint64((1 << cw) - 1)
+    return ((key << np.uint64(r))
+            | np.arange(n, dtype=np.uint64)).view(np.int64)
+
+
+@pytest.mark.parametrize("keys", ["random", "one_bucket", "top_bit"])
+@pytest.mark.parametrize("r,cw", [(11, 53), (11, 14), (13, 51), (13, 3),
+                                  (10, 0)])
+def test_sort_words_bits_promise_on_packed_words(r, cw, keys):
+    """On words built as packed_argsort builds them, the plain version
+    gives the same result with and without `bits`, and a stable sort on
+    the digits of bits [r, r + cw) alone gives the full sort."""
+    if keys == "top_bit" and r + cw < 64:
+        cw = 64 - r  # the key reaches bit 63
+    w = _packed_words(np.random.RandomState(r * 100 + cw), r, cw, keys)
+    full = K.sort_words_plain(torch.from_numpy(w))
+    bits = (r, r + cw)
+    assert torch.equal(K.sort_words(torch.from_numpy(w), bits), full)
+    assert torch.equal(K.sort_words_plain(torch.from_numpy(w), bits), full)
+    assert np.array_equal(_lsd_by_digits(w, *bits), full.numpy())
+
+
+@pytest.mark.parametrize("bits", [(0, 64), (0, 8), (5, 63), (3, 64)])
+def test_sort_words_digits_of_general_words(bits):
+    """Arbitrary words (top bit set on half, many equal) sorted on all 64
+    bits, and words that agree outside [lo, hi) sorted on those bits."""
+    rng = np.random.RandomState(sum(bits))
+    n = 4096
+    lo, hi = bits
+    w = (rng.randint(0, 2**63, n).astype(np.uint64)
+         | (rng.randint(0, 2, n).astype(np.uint64) << np.uint64(63)))
+    w[rng.rand(n) < 0.3] = w[0]
+    inside = np.uint64(((1 << hi) - 1) ^ ((1 << lo) - 1))
+    w = (w & inside) | (np.uint64(0xA5A5A5A5A5A5A5A5) & ~inside)
+    w = w.view(np.int64)
+    full = K.sort_words_plain(torch.from_numpy(w)).numpy()
+    assert np.array_equal(_lsd_by_digits(w, lo, hi), full)
+
+
+@pytest.mark.parametrize("bits", [(-1, 64), (10, 5), (0, 65)])
+def test_sort_words_rejects_bad_bits(bits):
+    with pytest.raises(ValueError):
+        K.sort_words(torch.zeros(8, dtype=torch.int64), bits)
+
+
+def test_packed_argsort_keeps_its_bits_promise(monkeypatch):
+    """Every word sort packed_argsort asks for names the key bits of its
+    pass, and the words keep the promise: zero above them, and a stable
+    sort on their digits alone gives the full sort (two 64-bit hashes,
+    q18's grouping, at a small capacity: passes of 53, 53 and 22 bits)."""
+    calls = []
+
+    def spy(words, bits=(0, 64)):
+        calls.append(bits)
+        lo, hi = bits
+        w = words.numpy()
+        if hi < 64:
+            assert not np.any(w.view(np.uint64) >> np.uint64(hi))
+        full = K.sort_words_plain(words)
+        assert np.array_equal(_lsd_by_digits(w, lo, hi), full.numpy())
+        return K.sort_words(words, bits)
+
+    monkeypatch.setattr(PS, "sort_words", spy)
+    rng = np.random.RandomState(6)
+    cap = 2048
+    h1 = rng.randint(0, 2**63, cap).astype(np.uint64) << np.uint64(1)
+    h2 = rng.randint(0, 2**63, cap).astype(np.uint64)
+    h1[::7] = h1[0]  # ties on the first hash
+    comps = [(jnp.asarray(h1), 64), (jnp.asarray(h2), 64)]
+    want = np.asarray(JPS.packed_argsort(comps, cap))
+    got = PS.packed_argsort([(_u64_as_i64(h1), 64), (_u64_as_i64(h2), 64)],
+                            cap).numpy()
+    assert np.array_equal(got, want)
+    assert calls == [(11, 64), (11, 64), (11, 33)]
+
+
 def test_kernel_wrappers_take_plain_version_on_cpu():
     K.reset_launches()
     x = torch.arange(1024, dtype=torch.int64)
