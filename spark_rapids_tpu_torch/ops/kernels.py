@@ -25,13 +25,14 @@ sources, so an edited kernel is rebuilt.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
 import subprocess
 import threading
 import time
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -138,11 +139,23 @@ def _blocks(name: str, n: int) -> int:
     return -(-n // _SCAN_BLOCK[name])
 
 
-def _scratch(name: str, device: torch.device, *args: int) -> torch.Tensor:
-    """The scratch bytes the library in _LIBS[name] asks for."""
+@functools.lru_cache(maxsize=1024)
+def _scratch_bytes(name: str, *args: int) -> int:
     _func(name)
-    return torch.empty(_SCRATCH[name](*args), dtype=torch.uint8,
-                       device=device)
+    return _SCRATCH[name](*args)
+
+
+def _scratch(name: str, device: torch.device, *args: int
+             ) -> Optional[torch.Tensor]:
+    """The scratch the library in _LIBS[name] asks for, or None (a null
+    pointer) when it asks for none, as K3's tile route does."""
+    size = _scratch_bytes(name, *args)
+    return torch.empty(size, dtype=torch.uint8, device=device) if size \
+        else None
+
+
+def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+    return None if t is None else t.data_ptr()
 
 
 def _kernel(fn, lib: str, replaces: str):
@@ -200,7 +213,7 @@ def cumsum(v: torch.Tensor) -> torch.Tensor:
     scratch = _scratch("cumsum", v.device, n, v.element_size())
     with torch.cuda.device(v.device):
         _check(_func("cumsum")(v.data_ptr(), out.data_ptr(),
-                               scratch.data_ptr(), n, v.element_size(),
+                               _ptr(scratch), n, v.element_size(),
                                _stream(v)), "cumsum")
     cumsum.launches += 1
     cumsum.shapes.add((n, v.dtype))
@@ -313,7 +326,7 @@ def sort_words(words: torch.Tensor,
     scratch = _scratch("radix_sort", words.device, n, lo, hi)
     with torch.cuda.device(words.device):
         _check(_func("radix_sort")(words.data_ptr(), out.data_ptr(),
-                                   scratch.data_ptr(), n, lo, hi,
+                                   _ptr(scratch), n, lo, hi,
                                    _stream(words)), "sort_words")
     sort_words.launches += 1
     sort_words.shapes.add((n, words.dtype, lo, hi))
