@@ -11,8 +11,11 @@ Phases, each printing a line:
      each on the card at the shapes the query phase gives it (the 2^26
      batch capacity; K3 at each bit range of q18's grouping, at all 64
      bits, and at 1024, the order-by's capacity; K2 also at int32 and at
-     a length that is not a multiple of its tile), on K3's hard inputs
-     too (one digit bucket, the top bit set), held against its plain
+     a length that is not a multiple of its tile; K1 at each request set
+     the aggregates send it, several columns in one launch, at about
+     four rows a group and at 4 groups, a set of several columns also
+     timed as one-column launches), on K3's hard inputs too (one digit
+     bucket, the top bit set), held against its plain
      PyTorch version on the same inputs and timed beside it, beside one
      PyTorch library call where one computes the same function, and
      beside its bound;
@@ -48,6 +51,14 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (data sheet)
 SUM_REL_TOL = {torch.float64: 1e-12, torch.float32: 1e-4}
 REPS = 3                   # warm runs of each query
 ORDER_BY_CAP = 1024        # capacity of q1's bucket state and q18's result
+_F64, _I64, _I32 = torch.float64, torch.int64, torch.int32
+# K1's request sets, ((dtype, op), ...) per call: q18's two (the float
+# sum, and _first_rows' int64 min over the row index) first, then float
+# and int64 min/max alone, then _minmax's pairs for a float Min and Max
+K1_REQUEST_SETS = [((_F64, "sum"),), ((_I64, "min"),), ((_F64, "min"),),
+                   ((_F64, "max"),), ((_I64, "max"),),
+                   ((_I32, "max"), (_F64, "min")),
+                   ((_I32, "max"), (_F64, "max"))]
 
 
 def card_line() -> str:
@@ -92,7 +103,7 @@ def phase2_shapes(cap: int) -> list:
     for each bit range of q18's grouping and for all 64 bits (the radix
     route), and at the capacity the order-bys sort (the tile route); K2
     at int64 and int32, at the capacity and at a length that is not a
-    multiple of its tile; K1 at the dtypes and ops the aggregates give
+    multiple of its tile; K1 at the request sets the aggregates give
     it.  A shape is what the wrapper notes in its `shapes` set."""
     r_ob = ORDER_BY_CAP.bit_length() - 1
     return ([("sort_words", (cap, torch.int64) + b)
@@ -100,10 +111,7 @@ def phase2_shapes(cap: int) -> list:
             + [("sort_words", (ORDER_BY_CAP, torch.int64, r_ob, 64))]
             + [("cumsum", (n, dt)) for n in (cap, cap + 7)
                for dt in (torch.int64, torch.int32)]
-            + [("seg_scan", (cap, dt, op))
-               for dt, ops in ((torch.float64, ("sum", "min", "max")),
-                               (torch.int64, ("min", "max")))
-               for op in ops])
+            + [("seg_scan", (cap, cols)) for cols in K1_REQUEST_SETS])
 
 
 def check_kernels(gen: torch.Generator, dev: torch.device, shapes: list,
@@ -112,27 +120,34 @@ def check_kernels(gen: torch.Generator, dev: torch.device, shapes: list,
     card.  `report` keeps, per kernel, the numbers of the first shape
     checked (the batch capacity) and the largest error of all."""
 
-    def record(kernel, config, got, want, kernel_fn, plain_fn, library_fn,
-               nbytes, exact):
+    def compare(got, want, exact):
+        """(max abs error, max rel error, agrees) of one output."""
         if exact:
             ok = torch.equal(got, want) if not got.is_floating_point() else \
                 bool(torch.all((got == want)
                                | (torch.isnan(got) & torch.isnan(want))))
             err = 0.0 if ok else float("inf")
-            rel = err
-        else:
-            nan_ok = torch.equal(torch.isnan(got), torch.isnan(want))
-            m = ~torch.isnan(want)
-            diff = (got[m] - want[m]).abs()
-            err = float(diff.max()) if diff.numel() else 0.0
-            rel = float((diff / want[m].abs().clamp_min(1e-300)).max()) \
-                if diff.numel() else 0.0
-            ok = nan_ok and rel <= SUM_REL_TOL[got.dtype]
+            return err, err, ok
+        nan_ok = torch.equal(torch.isnan(got), torch.isnan(want))
+        m = ~torch.isnan(want)
+        diff = (got[m] - want[m]).abs()
+        err = float(diff.max()) if diff.numel() else 0.0
+        rel = float((diff / want[m].abs().clamp_min(1e-300)).max()) \
+            if diff.numel() else 0.0
+        return err, rel, nan_ok and rel <= SUM_REL_TOL[got.dtype]
+
+    def record(kernel, config, outputs, kernel_fn, plain_fn, library_fn,
+               nbytes, **extra):
+        """`outputs`: (kernel's, plain version's, exact) per output."""
+        errs = [compare(*o) for o in outputs]
+        err = max(e[0] for e in errs)
+        rel = max(e[1] for e in errs)
+        ok = all(e[2] for e in errs)
         row = {"kernel": kernel, "config": config,
                "ms": time_ms(kernel_fn), "plain_ms": time_ms(plain_fn, 2),
                "library_ms": time_ms(library_fn) if library_fn else None,
                "bound_ms": bound_ms(nbytes), "max_abs_err": err,
-               "max_rel_err": rel, "ok": ok}
+               "max_rel_err": rel, "ok": ok, **extra}
         print("kernel " + json.dumps(row), flush=True)
         if not ok:
             raise AssertionError(f"{kernel} {config} disagrees with its "
@@ -170,10 +185,11 @@ def check_kernels(gen: torch.Generator, dev: torch.device, shapes: list,
         del rand, iota
         for what, w in inputs:
             record("sort_words", f"n={n} {dtype} bits=({lo}, {hi}) {what}",
-                   K.sort_words(w, (lo, hi)), K.sort_words_plain(w),
+                   [(K.sort_words(w, (lo, hi)), K.sort_words_plain(w),
+                     True)],
                    lambda: K.sort_words(w, (lo, hi)),
                    lambda: K.sort_words_plain(w), lambda: torch.sort(w),
-                   16 * n, exact=True)
+                   16 * n)
         del inputs, w
 
     def cumsum(n, dtype):
@@ -181,39 +197,51 @@ def check_kernels(gen: torch.Generator, dev: torch.device, shapes: list,
         top = torch.iinfo(dtype).max
         v = torch.randint(top // 8, top // 2, (n,), dtype=dtype, device=dev,
                           generator=gen)
-        record("cumsum", f"n={n} {dtype}, wraps", K.cumsum(v),
-               K.cumsum_plain(v), lambda: K.cumsum(v),
-               lambda: K.cumsum_plain(v),
+        record("cumsum", f"n={n} {dtype}, wraps",
+               [(K.cumsum(v), K.cumsum_plain(v), True)],
+               lambda: K.cumsum(v), lambda: K.cumsum_plain(v),
                lambda: torch.cumsum(v, 0, dtype=dtype),
-               2 * n * v.element_size(), exact=True)
+               2 * n * v.element_size())
 
-    def seg_scan(n, dtype, op):
-        # ascending group ids at about four rows a group (q18's orders)
-        # and at 4 groups (q1's)
+    def column(n, dtype):
+        if dtype.is_floating_point:
+            # positive values like the prices the queries sum, so a
+            # relative tolerance holds for every running value
+            v = (torch.rand(n, dtype=torch.float64, device=dev,
+                            generator=gen) * 1e5 + 1.0).to(dtype)
+            v[torch.rand(n, device=dev, generator=gen)
+              < max(1e-6, 4 / n)] = float("nan")
+            return v
+        info = torch.iinfo(dtype)
+        return torch.randint(info.min // 2, info.max // 2, (n,), dtype=dtype,
+                             device=dev, generator=gen)
+
+    def seg_scan(n, cols):
+        # one request set in one launch, at about four rows a group
+        # (q18's orders) and at 4 groups (q1's); a set of several columns
+        # is also timed as one-column launches.  Floats hold NaN at
+        # p = max(1e-6, 4 / n)
+        ops = [op for _, op in cols]
         for groups in (max(1, n // 4), 4):
             gid = torch.sort(torch.randint(0, groups, (n,), device=dev,
                                            generator=gen)).values
             gid = gid.to(torch.int32)
-            if dtype.is_floating_point:
-                # positive values like the prices the queries sum, so a
-                # relative tolerance holds for every running value
-                v = (torch.rand(n, dtype=torch.float64, device=dev,
-                                generator=gen) * 1e5 + 1.0).to(dtype)
-                nan_p = max(1e-6, 4 / n)
-                v[torch.rand(n, device=dev, generator=gen) < nan_p] = \
-                    float("nan")
-                extra = f" NaN p={nan_p:g}"
-            else:
-                info = torch.iinfo(dtype)
-                v = torch.randint(info.min // 2, info.max // 2, (n,),
-                                  dtype=dtype, device=dev, generator=gen)
-                extra = ""
-            record("seg_scan", f"n={n} {groups} groups {dtype} {op}{extra}",
-                   K.seg_scan(gid, v, op), K.seg_scan_plain(gid, v, op),
-                   lambda: K.seg_scan(gid, v, op),
-                   lambda: K.seg_scan_plain(gid, v, op), None,
-                   n * (4 + 2 * v.element_size()),
-                   exact=not (op == "sum" and dtype.is_floating_point))
+            vals = [column(n, dtype) for dtype, _ in cols]
+            extra = {}
+            if len(cols) > 1:
+                extra["separate_ms"] = time_ms(lambda: [
+                    K.seg_scan(gid, [v], [op]) for v, op in zip(vals, ops)])
+            record("seg_scan", f"n={n} {groups} groups "
+                   + ", ".join(f"{dt} {op}" for dt, op in cols),
+                   [(got, want, not (op == "sum" and v.is_floating_point()))
+                    for got, want, v, op in zip(
+                        K.seg_scan(gid, vals, ops),
+                        K.seg_scan_plain(gid, vals, ops), vals, ops)],
+                   lambda: K.seg_scan(gid, vals, ops),
+                   lambda: K.seg_scan_plain(gid, vals, ops), None,
+                   n * (4 + sum(2 * v.element_size() for v in vals)),
+                   **extra)
+            del gid, vals
 
     checks = {"sort_words": sort_words, "cumsum": cumsum,
               "seg_scan": seg_scan}

@@ -150,7 +150,9 @@ def _seg_multi(reqs, gid: torch.Tensor, cap: int) -> List[torch.Tensor]:
     `reqs`: (op, vals, contribute, fill[, is_count]) with op in
     'sum'|'min'|'max'; rows where `contribute` is false add 0 to a sum or
     compare as `fill`.  Returns one [cap] tensor per request; an empty
-    segment gets 0 (sum) or `fill` (min/max)."""
+    segment gets 0 (sum) or `fill` (min/max).  Every K1 request of the
+    call (float sums, every min and max) goes to one K1 launch, as the
+    JAX package's fused path hands them all to one seg_agg_1d pass."""
     n = gid.shape[0]
     device = gid.device
     seg = torch.arange(cap, dtype=gid.dtype, device=device)
@@ -158,29 +160,31 @@ def _seg_multi(reqs, gid: torch.Tensor, cap: int) -> List[torch.Tensor]:
     end = torch.searchsorted(gid, seg, right=True)
     end_ix = (end - 1).clamp(0, n - 1)
     nonempty = end > start
-    results = []
-    for req in reqs:
+    results = [None] * len(reqs)
+    scans = []  # (request index, masked values, op, empty-segment value)
+    for i, req in enumerate(reqs):
         op, vals, contribute, fill = req[0], req[1], req[2], req[3]
         if op == "sum" and not vals.is_floating_point():
             v = torch.where(contribute, vals, 0)
             c = _masked_cumsum(v)
             total = torch.where(end > 0, c[end_ix], 0)
             prev = torch.where(start > 0, c[(start - 1).clamp(0, n - 1)], 0)
-            results.append(torch.where(nonempty, total - prev, 0)
-                           .to(vals.dtype))
-            continue
-        if op == "sum":
-            v = torch.where(contribute, vals, 0)
-            ident = 0
+            results[i] = torch.where(nonempty, total - prev, 0) \
+                .to(vals.dtype)
+        elif op == "sum":
+            scans.append((i, torch.where(contribute, vals, 0), op, 0))
         else:
-            v = torch.where(contribute, vals,
-                            torch.as_tensor(fill, dtype=vals.dtype,
-                                            device=device))
-            ident = fill
-        run = K.seg_scan(gid, v, op)
-        results.append(torch.where(
-            nonempty, run[end_ix],
-            torch.as_tensor(ident, dtype=run.dtype, device=device)))
+            scans.append((i, torch.where(
+                contribute, vals,
+                torch.as_tensor(fill, dtype=vals.dtype, device=device)),
+                op, fill))
+    if scans:
+        runs = K.seg_scan(gid, [v for _, v, _, _ in scans],
+                          [op for _, _, op, _ in scans])
+        for (i, _, _, ident), run in zip(scans, runs):
+            results[i] = torch.where(
+                nonempty, run[end_ix],
+                torch.as_tensor(ident, dtype=run.dtype, device=device))
     return results
 
 

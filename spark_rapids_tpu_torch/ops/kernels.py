@@ -4,12 +4,13 @@ and the build that turns `csrc/*.cu` into shared libraries.
 Each wrapper takes the plain version for a tensor that lies on the CPU
 and launches its CUDA kernel for a tensor on the card; there is no other
 path.  Every launch adds one to the wrapper's `launches` count and notes
-its shape (length, dtype, and the op or bit range) in the wrapper's
-`shapes` set.  Each wrapper also names its `source` under csrc/ and the
-TPU kernel it `replaces`.
+its shape (length, dtype, and the op or bit range; for K1 the length and
+each column's (dtype, op)) in the wrapper's `shapes` set.  Each wrapper
+also names its `source` under csrc/ and the TPU kernel it `replaces`.
 
   * K1 `seg_scan` (csrc/seg_scan.cu) replaces pallas_kernels.seg_agg_1d:
-    segmented inclusive running sum/min/max over ascending group ids.
+    segmented inclusive running sum/min/max over ascending group ids, of
+    up to 8 value columns in one pass.
   * K2 `cumsum` (csrc/cumsum.cu) replaces pallas_kernels.cumsum_1d:
     inclusive prefix sum of int32/int64, wrapping.
   * K3 `sort_words` (csrc/radix_sort.cu) replaces
@@ -20,7 +21,8 @@ TPU kernel it `replaces`.
 The kernels are built at first use with one `nvcc` per source, all
 started together, into `_build/` beside this package (a plain C
 interface, loaded with ctypes).  A library's name carries a hash of its
-sources, so an edited kernel is rebuilt.
+source (each includes no header of its own), so an edited kernel is
+rebuilt.
 """
 from __future__ import annotations
 
@@ -43,12 +45,13 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 
 # library name -> (source, C function, argtypes, scratch-size function and
-# its argtypes, or None): the library reports the scratch its launch needs,
-# so sizes live in the CUDA source alone
+# its argtypes): the library reports the scratch its launch needs, so sizes
+# live in the CUDA source alone
 _P, _N, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 _LIBS = {
     "seg_scan": ("seg_scan.cu", "srt_seg_scan",
-                 [_P, _P, _P, _P, _P, _N, _I, _I, _P], None),
+                 [_P, _P, _P, _P, _P, _I, _P, _N, _P],
+                 ("srt_seg_scan_scratch_bytes", [_N, _I])),
     "cumsum": ("cumsum.cu", "srt_cumsum", [_P, _P, _P, _N, _I, _P],
                ("srt_cumsum_scratch_bytes", [_N, _I])),
     "radix_sort": ("radix_sort.cu", "srt_radix_sort",
@@ -57,8 +60,6 @@ _LIBS = {
 }
 _FUNCS: Dict[str, ctypes._CFuncPtr] = {}
 _SCRATCH: Dict[str, ctypes._CFuncPtr] = {}
-# rows per CUDA block of K1, as the library reports it (srt_scan_block)
-_SCAN_BLOCK: Dict[str, int] = {}
 _BUILD_LOCK = threading.Lock()
 
 
@@ -75,10 +76,8 @@ def _nvcc() -> str:
 def _lib_path(name: str) -> str:
     src = _LIBS[name][0]
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for fn in sorted(os.listdir(CSRC)):
-        if fn == src or fn.endswith(".cuh"):
-            with open(os.path.join(CSRC, fn), "rb") as f:
-                h.update(fn.encode() + f.read())
+    with open(os.path.join(CSRC, src), "rb") as f:
+        h.update(src.encode() + f.read())
     return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:12]}.so")
 
 
@@ -97,8 +96,7 @@ def build() -> float:
             if os.path.exists(path):
                 continue
             tmp = f"{path}.{os.getpid()}.tmp"
-            cmd = [_nvcc(), *NVCC_FLAGS, "-I", CSRC, "-o", tmp,
-                   os.path.join(CSRC, src)]
+            cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, src)]
             procs.append((name, path, tmp, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
         failed = []
@@ -116,13 +114,10 @@ def build() -> float:
             fn = getattr(lib, fn_name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
-            if scratch is None:  # K1, built on scan_common.cuh
-                _SCAN_BLOCK[name] = lib.srt_scan_block()
-            else:
-                size = getattr(lib, scratch[0])
-                size.argtypes = scratch[1]
-                size.restype = ctypes.c_longlong
-                _SCRATCH[name] = size
+            size = getattr(lib, scratch[0])
+            size.argtypes = scratch[1]
+            size.restype = ctypes.c_longlong
+            _SCRATCH[name] = size
             _FUNCS[name] = fn
     return time.perf_counter() - t0
 
@@ -131,12 +126,6 @@ def _func(name: str):
     if name not in _FUNCS:
         build()
     return _FUNCS[name]
-
-
-def _blocks(name: str, n: int) -> int:
-    """CUDA blocks (one scratch entry each) that K1 uses for n rows."""
-    _func(name)
-    return -(-n // _SCAN_BLOCK[name])
 
 
 @functools.lru_cache(maxsize=1024)
@@ -228,18 +217,20 @@ _kernel(cumsum, "cumsum", "spark_rapids_tpu/ops/pallas_kernels.py:63")
 # --------------------------------------------------------------------------
 
 SEG_OPS = ("sum", "min", "max")
+# columns one launch takes: SS_MAX_COLS in csrc/seg_scan.cu, and the codes
+# below are its Column descriptor's (a CPU test holds them equal).  The
+# largest request set the aggregates send, _minmax's float Min, has 2.
+SEG_MAX_COLUMNS = 8
 _SEG_DTYPES = {torch.int32: 0, torch.int64: 1, torch.float32: 2,
                torch.float64: 3}
 _COMBINE = {"sum": torch.add, "min": torch.minimum, "max": torch.maximum}
 
 
-def seg_scan_plain(gid: torch.Tensor, vals: torch.Tensor,
-                   op: str) -> torch.Tensor:
-    """Segmented inclusive scan as a log-step (Hillis-Steele) sweep: at
-    distance d every row folds in the row d above it when both carry the
-    same gid.  Restarts at each boundary, like the kernel."""
+def _sweep(gid: torch.Tensor, v: torch.Tensor, op: str) -> torch.Tensor:
+    """Segmented inclusive scan of one column as a log-step
+    (Hillis-Steele) sweep: at distance d every row folds in the row d
+    above it when both carry the same gid."""
     comb = _COMBINE[op]
-    v = vals
     n = v.numel()
     d = 1
     while d < n:
@@ -253,36 +244,56 @@ def seg_scan_plain(gid: torch.Tensor, vals: torch.Tensor,
     return v
 
 
-def seg_scan(gid: torch.Tensor, vals: torch.Tensor, op: str) -> torch.Tensor:
-    """Running `op` of `vals` within each run of equal ascending `gid`
-    (int32); the value at a run's last row is the run's reduction (K1 on
-    the card)."""
-    if op not in SEG_OPS:
-        raise ValueError(f"unknown op {op!r}")
-    if gid.shape != vals.shape:
-        raise ValueError(f"gid {tuple(gid.shape)} vs values "
-                         f"{tuple(vals.shape)}")
-    if not _on_card(vals, "seg_scan", tuple(_SEG_DTYPES)):
-        return seg_scan_plain(gid, vals, op)
-    if gid.device != vals.device or gid.dtype != torch.int32:
-        raise TypeError("seg_scan: gid must be int32 on the values' device")
-    gid, vals = gid.contiguous(), vals.contiguous()
-    n = vals.numel()
-    out = torch.empty_like(vals)
+def seg_scan_plain(gid: torch.Tensor, vals: Sequence[torch.Tensor],
+                   ops: Sequence[str]) -> List[torch.Tensor]:
+    """seg_scan's function, one log-step sweep per column.  Restarts at
+    each boundary, like the kernel."""
+    return [_sweep(gid, v, op) for v, op in zip(vals, ops)]
+
+
+def seg_scan(gid: torch.Tensor, vals: Sequence[torch.Tensor],
+             ops: Sequence[str]) -> List[torch.Tensor]:
+    """For each column of `vals` (int32, int64, float32 or float64, mixed
+    dtypes allowed), the running `ops[i]` ("sum", "min" or "max") within
+    each run of equal ascending `gid` (int32): the value at a run's last
+    row is the run's reduction.  One K1 launch on the card for all the
+    columns, as pallas_kernels.seg_agg_1d takes them."""
+    vals, ops = list(vals), list(ops)
+    if not vals or len(vals) != len(ops):
+        raise ValueError(f"seg_scan: {len(vals)} columns, {len(ops)} ops")
+    if len(vals) > SEG_MAX_COLUMNS:
+        raise ValueError(f"seg_scan: {len(vals)} columns, at most "
+                         f"{SEG_MAX_COLUMNS} a launch")
+    for v, op in zip(vals, ops):
+        if op not in SEG_OPS:
+            raise ValueError(f"seg_scan: unknown op {op!r}")
+        if v.shape != gid.shape:
+            raise ValueError(f"seg_scan: gid {tuple(gid.shape)} vs values "
+                             f"{tuple(v.shape)}")
+    on_card = [_on_card(v, "seg_scan", tuple(_SEG_DTYPES)) for v in vals]
+    if not any(on_card):
+        return seg_scan_plain(gid, vals, ops)
+    if not all(on_card) or any(v.device != gid.device for v in vals) \
+            or gid.dtype != torch.int32:
+        raise TypeError("seg_scan: gid must be int32, on the device of "
+                        "every column")
+    gid = gid.contiguous()
+    vals = [v.contiguous() for v in vals]
+    outs = [torch.empty_like(v) for v in vals]
+    n, k = gid.numel(), len(vals)
     if n == 0:
-        return out
-    nb = _blocks("seg_scan", n)
-    carry_g = torch.empty(nb, dtype=torch.int32, device=vals.device)
-    carry_v = torch.empty(nb, dtype=vals.dtype, device=vals.device)
-    with torch.cuda.device(vals.device):
-        _check(_func("seg_scan")(gid.data_ptr(), vals.data_ptr(),
-                                 out.data_ptr(), carry_g.data_ptr(),
-                                 carry_v.data_ptr(), n,
-                                 _SEG_DTYPES[vals.dtype], SEG_OPS.index(op),
-                                 _stream(vals)), "seg_scan")
+        return outs
+    scratch = _scratch("seg_scan", gid.device, n, k)
+    with torch.cuda.device(gid.device):
+        _check(_func("seg_scan")(
+            gid.data_ptr(), (_P * k)(*[v.data_ptr() for v in vals]),
+            (_P * k)(*[o.data_ptr() for o in outs]),
+            (_I * k)(*[_SEG_DTYPES[v.dtype] for v in vals]),
+            (_I * k)(*[SEG_OPS.index(op) for op in ops]), k, _ptr(scratch),
+            n, _stream(gid)), "seg_scan")
     seg_scan.launches += 1
-    seg_scan.shapes.add((n, vals.dtype, op))
-    return out
+    seg_scan.shapes.add((n, tuple((v.dtype, op) for v, op in zip(vals, ops))))
+    return outs
 
 
 _kernel(seg_scan, "seg_scan", "spark_rapids_tpu/ops/pallas_kernels.py:151")

@@ -12,6 +12,7 @@ from spark_rapids_tpu.columnar import Column as JColumn
 from spark_rapids_tpu.columnar import ColumnarBatch as JBatch
 from spark_rapids_tpu.exec import aggregate as JA
 from spark_rapids_tpu.exec import sort as JS
+from spark_rapids_tpu.ops import pallas_kernels as PK
 from spark_rapids_tpu.ops import expressions as JE
 from spark_rapids_tpu.types import (DoubleType as JDouble,
                                     IntegerType as JInt, LongType as JLong,
@@ -22,6 +23,7 @@ from spark_rapids_tpu_torch.exec import aggregate as A
 from spark_rapids_tpu_torch.exec import sort as S
 from spark_rapids_tpu_torch.exec.base import ExecContext, ExecNode
 from spark_rapids_tpu_torch.ops import expressions as E
+from spark_rapids_tpu_torch.ops import kernels as K
 from spark_rapids_tpu_torch.ops.aggregates import AggregateExpression
 from spark_rapids_tpu_torch.types import (DoubleType, IntegerType, LongType,
                                           Schema, StringType, StructField)
@@ -114,6 +116,109 @@ def test_seg_multi_matches_jax_reducers():
             np.testing.assert_allclose(g, w, rtol=1e-12, atol=1e-9)
         else:
             assert np.array_equal(g, w), i
+
+
+def _float_min_requests(seed: int, cap: int):
+    """_minmax's request set for a float Min, as numpy leaves: has-NaN
+    (int32 max), the valid count and the non-NaN count (int sums), and
+    the min over non-NaN values (float64); long runs and NaN included."""
+    rng = np.random.RandomState(seed)
+    gid = np.concatenate([np.sort(rng.randint(0, 20, cap // 4)),
+                          np.full(cap // 2, 20),
+                          np.sort(rng.randint(21, 200, cap // 4))])
+    v = rng.randn(cap) * 1e3
+    v[rng.rand(cap) < 0.05] = np.nan
+    contribute = rng.rand(cap) < 0.8
+    isnan = np.isnan(v)
+    ones = np.ones(cap, bool)
+    leaves = [("max", (contribute & isnan).astype(np.int32), ones, 0),
+              ("sum", contribute.astype(np.int64), ones, 0, True),
+              ("sum", (contribute & ~isnan).astype(np.int32), ones, 0, True),
+              ("min", np.where(isnan, np.inf, v), contribute, np.inf)]
+    return gid.astype(np.int32), leaves
+
+
+def test_seg_multi_float_min_set_matches_jax_fused_interpret(monkeypatch):
+    """The port's _seg_multi on _minmax's float-Min request set against
+    the JAX _seg_multi with its fused seg_agg_1d path in interpret mode
+    (its test hook), which takes every request of the set in one pass."""
+    cap = 4096
+    gid, leaves = _float_min_requests(9, cap)
+    monkeypatch.setattr(JA, "_PALLAS_SEG_INTERPRET", [True])
+    passes = []
+    fused = PK.seg_agg_1d
+
+    def counted(*args, **kw):
+        passes.append(kw.get("interpret"))
+        return fused(*args, **kw)
+
+    monkeypatch.setattr(PK, "seg_agg_1d", counted)
+    want = JA._seg_multi(
+        [(r[0], jnp.asarray(r[1]), jnp.asarray(r[2]),
+          jnp.float64(r[3]) if r[0] == "min" else r[3], *r[4:])
+         for r in leaves], jnp.asarray(gid), cap)
+    got = A._seg_multi(
+        [(r[0], torch.from_numpy(r[1]), torch.from_numpy(r[2]), *r[3:])
+         for r in leaves], torch.from_numpy(gid), cap)
+    assert passes == [True]  # one interpreted pass, no XLA fallback
+    segs = np.unique(gid)
+    assert np.asarray(want[0])[segs].any()  # some group holds a NaN
+    for i, (w, g) in enumerate(zip(want, got)):
+        w, g = np.asarray(w)[segs], g.numpy()[segs]
+        assert g.dtype == w.dtype, i
+        assert np.array_equal(g, w), i
+
+
+@pytest.mark.parametrize("case,k1", [
+    ("float_min", [(torch.int32, "max"), (torch.float64, "min")]),
+    ("float_max", [(torch.int32, "max"), (torch.float64, "max")]),
+    ("long_min", [(torch.int64, "min")]),
+    ("double_sum", [(torch.float64, "sum")]),
+    ("count", []),
+])
+def test_seg_multi_makes_one_seg_scan_call(monkeypatch, case, k1):
+    """One _seg_multi call makes exactly one K.seg_scan call, carrying
+    every K1 request (float sums, every min and max) and no other, and
+    its results equal the same requests made one per call."""
+    cap = 2048
+    gid, leaves = _float_min_requests(4, cap)
+    gid = torch.from_numpy(gid)
+    v = torch.from_numpy(leaves[3][1].copy())
+    v[torch.isinf(v)] = float("nan")
+    contribute = torch.from_numpy(leaves[3][2])
+    ones = torch.ones(cap, dtype=torch.bool)
+
+    def run():
+        if case in ("float_min", "float_max", "long_min"):
+            f = "Max" if case == "float_max" else "Min"
+            dt = LongType if case == "long_min" else DoubleType
+            vals = v.nan_to_num().long() if case == "long_min" else v
+            col = A._minmax(f, dt, vals, gid, contribute, cap)
+            return [col.data, col.valid]
+        if case == "double_sum":
+            return A._seg_multi([("sum", v.nan_to_num(), contribute, 0),
+                                 ("sum", contribute.long(), ones, 0, True)],
+                                gid, cap)
+        return A._seg_multi([("sum", contribute.long(), ones, 0, True)],
+                            gid, cap)
+
+    calls = []
+    real = K.seg_scan
+
+    def spy(g, vals, ops):
+        calls.append([(x.dtype, op) for x, op in zip(vals, ops)])
+        return real(g, vals, ops)
+
+    monkeypatch.setattr(K, "seg_scan", spy)
+    got = run()
+    assert calls == ([k1] if k1 else [])
+
+    # the same requests, one K.seg_scan call each
+    monkeypatch.setattr(K, "seg_scan", lambda g, vals, ops: [
+        real(g, [x], [op])[0] for x, op in zip(vals, ops)])
+    for a, b in zip(got, run()):
+        assert torch.equal(a.isnan(), b.isnan())
+        assert torch.equal(a.nan_to_num(), b.nan_to_num())
 
 
 @pytest.mark.parametrize("packed", [True, False])

@@ -4,6 +4,9 @@ without one.  Run them on a machine with a card, where JAX is absent:
 
     python -m pytest --noconftest -q -m cuda tests/test_torch_cuda.py
 """
+import os
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -18,6 +21,15 @@ def dev():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card")
     return torch.device("cuda")
+
+
+def _seg_tile_rows():
+    """K1's rows a tile, SS_THREADS * SS_ITEMS of csrc/seg_scan.cu."""
+    with open(os.path.join(K.CSRC, os.path.basename(K.seg_scan.source))) as f:
+        src = f.read()
+    d = {m.group(1): int(m.group(2)) for m in
+         re.finditer(r"^#define (SS_THREADS|SS_ITEMS) (\d+)$", src, re.M)}
+    return d["SS_THREADS"] * d["SS_ITEMS"]
 
 
 def _same(a, b):
@@ -81,16 +93,170 @@ def test_seg_scan_matches_plain(dev, op, dtype, n, groups):
         v[torch.from_numpy(rng.random(n) < 0.01)] = float("nan")
     else:
         v = torch.from_numpy(rng.integers(-1000, 1000, n)).to(dtype)
-    got = K.seg_scan(gid.to(dev), v.to(dev), op).cpu()
-    want = K.seg_scan_plain(gid, v, op)
-    if op == "sum" and dtype.is_floating_point:
-        # same terms, another order; NaN rows stay NaN in both
-        tol = 1e-4 if dtype == torch.float32 else 1e-12
-        assert torch.equal(torch.isnan(got), torch.isnan(want))
-        ok = ~torch.isnan(want)
-        torch.testing.assert_close(got[ok], want[ok], rtol=tol, atol=tol)
-    else:
-        assert _same(got, want)
+    got = K.seg_scan(gid.to(dev), [v.to(dev)], [op])
+    torch.cuda.synchronize()
+    _check_scan(got, K.seg_scan_plain(gid, [v], [op]), [op])
+
+
+def _check_scan(got, want, ops):
+    """Each column as its plain version: exactly, except float sums (same
+    terms, another order; NaN rows stay NaN in both)."""
+    assert len(got) == len(want) == len(ops)
+    for g, w, op in zip(got, want, ops):
+        g, w = g.cpu(), w.cpu()
+        assert g.dtype == w.dtype
+        if op == "sum" and w.dtype.is_floating_point:
+            tol = 1e-4 if w.dtype == torch.float32 else 1e-12
+            assert torch.equal(torch.isnan(g), torch.isnan(w))
+            ok = ~torch.isnan(w)
+            torch.testing.assert_close(g[ok], w[ok], rtol=tol, atol=tol)
+        else:
+            assert _same(g, w)
+
+
+_COLUMNS = [(torch.int32, "max"), (torch.float64, "min"),
+            (torch.float32, "sum"), (torch.int64, "sum"),
+            (torch.float64, "sum"), (torch.int32, "min"),
+            (torch.int64, "max"), (torch.float32, "max")]
+
+
+def _columns(rng, n, spec, dev, nan_p=0.01):
+    """One column per (dtype, op): floats with NaN at `nan_p` (positive
+    for a sum, so a relative tolerance holds along a long run), integers
+    large enough that int sums wrap."""
+    cols = []
+    for dtype, op in spec:
+        if dtype.is_floating_point:
+            x = rng.random(n) + 0.5 if op == "sum" \
+                else rng.standard_normal(n)
+            v = torch.from_numpy(x).to(dtype)
+            v[torch.from_numpy(rng.random(n) < nan_p)] = float("nan")
+        else:
+            info = torch.iinfo(dtype)
+            v = torch.from_numpy(rng.integers(info.min // 2, info.max // 2,
+                                              n)).to(dtype)
+        cols.append(v.to(dev))
+    return cols
+
+
+@pytest.mark.parametrize("k", [1, 2, 3, 4])
+@pytest.mark.parametrize("n,groups", [(1, 1), (5119, 3), (5121, 900),
+                                      (1 << 20, 4), ((1 << 20) + 7, 260000)])
+def test_seg_scan_mixed_columns_match_plain(dev, k, n, groups):
+    """k columns of mixed dtypes and ops in one launch (int32 beside
+    float64: different rows a 16-byte vector), ragged last tiles."""
+    rng = np.random.default_rng(n * 10 + k)
+    gid = torch.from_numpy(np.sort(rng.integers(0, groups, n))
+                           .astype(np.int32)).to(dev)
+    spec = _COLUMNS[:k]
+    # NaN only where runs are short: it fills the rest of its run
+    cols = _columns(rng, n, spec, dev, 0.01 if n // groups < 1000 else 0.0)
+    ops = [op for _, op in spec]
+    got = K.seg_scan(gid, cols, ops)
+    torch.cuda.synchronize()
+    _check_scan(got, K.seg_scan_plain(gid, cols, ops), ops)
+
+
+def test_seg_scan_max_columns_and_one_over(dev):
+    n = 100_003
+    rng = np.random.default_rng(8)
+    gid = torch.from_numpy(np.sort(rng.integers(0, 5000, n))
+                           .astype(np.int32)).to(dev)
+    spec = _COLUMNS[:K.SEG_MAX_COLUMNS]
+    cols = _columns(rng, n, spec, dev)
+    ops = [op for _, op in spec]
+    got = K.seg_scan(gid, cols, ops)
+    torch.cuda.synchronize()
+    _check_scan(got, K.seg_scan_plain(gid, cols, ops), ops)
+    with pytest.raises(ValueError):
+        K.seg_scan(gid, cols + cols[:1], ops + ops[:1])
+
+
+@pytest.mark.parametrize("op", ["sum", "min", "max"])
+def test_seg_scan_one_run_spans_every_tile(dev, op):
+    """One gid for all 2^20 + 7 rows: every tile's look-back walks the
+    aggregates back to an inclusive prefix, in one pass."""
+    n = (1 << 20) + 7
+    rng = np.random.default_rng(3)
+    gid = torch.full((n,), 7, dtype=torch.int32, device=dev)
+    spec = [(torch.float64, op), (torch.int64, op), (torch.int32, op)]
+    cols = _columns(rng, n, spec, dev, nan_p=0.0)
+    got = K.seg_scan(gid, cols, [op] * 3)
+    torch.cuda.synchronize()
+    _check_scan(got, K.seg_scan_plain(gid, cols, [op] * 3), [op] * 3)
+
+
+@pytest.mark.parametrize("op", ["sum", "min", "max"])
+def test_seg_scan_nan_in_a_leading_run(dev, op):
+    """Runs that cross tile boundaries with NaN on either side of the
+    boundary: in the run's rows of the tile before (carried through the
+    look-back into the next tile), and in the leading run of the tile
+    after.  Runs are 3000 rows; the tile is read from csrc/seg_scan.cu."""
+    tile = _seg_tile_rows()
+    assert 3000 < tile < 6000  # the positions below assume it
+    n = tile * 6 + 11
+    gid = torch.arange(n, device=dev, dtype=torch.int32) // 3000
+    v = (torch.arange(n, dtype=torch.float64, device=dev) * 7919) \
+        % 1000 / 100 + 1
+    v[tile - 7] = float("nan")  # tile 0's part of gid 1, which crosses
+    v[2 * tile + 3] = float("nan")  # tile 2's leading run (gid 2)
+    v[4 * tile + 1] = float("nan")  # tile 4's leading run (gid 5)
+    assert int(gid[tile - 7]) == int(gid[tile]) == 1
+    assert int(gid[2 * tile + 3]) == int(gid[2 * tile - 1]) == 2
+    assert int(gid[4 * tile + 1]) == int(gid[4 * tile - 1]) == 5
+    got = K.seg_scan(gid, [v, v.float()], [op, op])
+    torch.cuda.synchronize()
+    _check_scan(got, K.seg_scan_plain(gid, [v, v.float()], [op, op]),
+                [op, op])
+
+
+def test_seg_scan_off_the_vector_boundary(dev):
+    """Columns that start off a 16-byte boundary take the row-by-row
+    path in every tile; gid and the other column stay aligned."""
+    n = (1 << 18) + 5
+    rng = np.random.default_rng(4)
+    gid = torch.from_numpy(np.sort(rng.integers(0, 9000, n))
+                           .astype(np.int32)).to(dev)
+    a = torch.arange(n + 1, dtype=torch.int32, device=dev)[1:]
+    b = torch.randn(n + 1, dtype=torch.float64, device=dev)[1:]
+    c = torch.randn(n, dtype=torch.float64, device=dev)
+    assert a.data_ptr() % 16 and b.data_ptr() % 16
+    ops = ["sum", "max", "sum"]
+    got = K.seg_scan(gid, [a, b, c], ops)
+    torch.cuda.synchronize()
+    _check_scan(got, K.seg_scan_plain(gid, [a, b, c], ops), ops)
+
+
+def test_seg_scan_twice_on_one_stream(dev):
+    """Two launches queued back to back on other inputs and another k:
+    the second must find its tile counter and flags reset."""
+    n = (1 << 20) + 7
+    rng = np.random.default_rng(5)
+    g1 = torch.from_numpy(np.sort(rng.integers(0, 4, n))
+                          .astype(np.int32)).to(dev)
+    g2 = torch.from_numpy(np.sort(rng.integers(0, n // 4, n))
+                          .astype(np.int32)).to(dev)
+    c1 = _columns(rng, n, _COLUMNS[:2], dev, nan_p=0.0)
+    c2 = _columns(rng, n, _COLUMNS[2:5], dev)
+    o1, o2 = [op for _, op in _COLUMNS[:2]], [op for _, op in _COLUMNS[2:5]]
+    a = K.seg_scan(g1, c1, o1)
+    b = K.seg_scan(g2, c2, o2)
+    torch.cuda.synchronize()
+    _check_scan(a, K.seg_scan_plain(g1, c1, o1), o1)
+    _check_scan(b, K.seg_scan_plain(g2, c2, o2), o2)
+
+
+def test_seg_scan_counts_one_launch_per_call(dev):
+    K.reset_launches()
+    gid = torch.zeros(10_000, dtype=torch.int32, device=dev)
+    for k in (1, 3, K.SEG_MAX_COLUMNS):
+        cols = [torch.ones(10_000, device=dev, dtype=torch.float64)] * k
+        K.seg_scan(gid, cols, ["sum"] * k)
+    torch.cuda.synchronize()
+    assert K.seg_scan.launches == 3
+    assert K.seg_scan.shapes == {
+        (10_000, ((torch.float64, "sum"),) * k)
+        for k in (1, 3, K.SEG_MAX_COLUMNS)}
 
 
 @pytest.mark.parametrize("n", [1, 2, 1024, 4096, 8192, 1 << 16, 1 << 20])
@@ -156,11 +322,12 @@ def test_launch_counters_count_launches(dev):
     x = torch.arange(4096, dtype=torch.int64, device=dev)
     K.cumsum(x)
     K.sort_words(x)
-    K.seg_scan(torch.zeros(4096, dtype=torch.int32, device=dev), x, "max")
+    K.seg_scan(torch.zeros(4096, dtype=torch.int32, device=dev), [x],
+               ["max"])
     K.cumsum(x.cpu())  # the plain version launches nothing
     assert K.launch_counts() == {"seg_scan": 1, "cumsum": 1,
                                  "sort_words": 1}
-    assert K.seg_scan.shapes == {(4096, torch.int64, "max")}
+    assert K.seg_scan.shapes == {(4096, ((torch.int64, "max"),))}
     assert K.cumsum.shapes == {(4096, torch.int64)}
     assert K.sort_words.shapes == {(4096, torch.int64, 0, 64)}
 

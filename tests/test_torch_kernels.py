@@ -8,6 +8,7 @@ with numpy from a seed and handed to both packages.
 """
 import inspect
 import pathlib
+import re
 
 import jax.numpy as jnp
 import numpy as np
@@ -69,7 +70,8 @@ def test_seg_scan_plain_matches_pallas_seg_agg_1d(op, dtype):
         v = rng.randn(n).astype(dtype)
     want = np.asarray(PK.seg_agg_1d(jnp.asarray(gid), [jnp.asarray(v)],
                                     [op], interpret=True)[0])
-    got = K.seg_scan(torch.from_numpy(gid), torch.from_numpy(v), op).numpy()
+    got = K.seg_scan(torch.from_numpy(gid), [torch.from_numpy(v)],
+                     [op])[0].numpy()
     if dtype == np.float32 and op == "sum":
         # same terms, another order (tile rows vs a log-step sweep)
         np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
@@ -92,10 +94,64 @@ def test_seg_scan_plain_restarts_and_handles_nan():
         for i in range(1, n):
             if gid[i] == gid[i - 1]:
                 want[i] = f(want[i - 1], v[i])
-        got = K.seg_scan(torch.from_numpy(gid), torch.from_numpy(v),
-                         op).numpy()
+        got = K.seg_scan(torch.from_numpy(gid), [torch.from_numpy(v)],
+                         [op])[0].numpy()
         np.testing.assert_allclose(got, want, rtol=1e-12, atol=1e-12,
                                    equal_nan=True)
+
+
+_MIXED = [(np.int32, "max"), (np.float32, "sum"), (np.int32, "sum"),
+          (np.float32, "min")]
+
+
+@pytest.mark.parametrize("k", [1, 2, 3, 4])
+def test_seg_scan_plain_mixed_columns_match_pallas_seg_agg_1d(k):
+    """k int32 and float32 columns (the dtypes the TPU kernel takes) under
+    different ops in one call, against one seg_agg_1d call on the same
+    columns; one segment spans several of its 1024-row tiles."""
+    rng = np.random.RandomState(20 + k)
+    n = 8192
+    gid = np.concatenate([np.sort(rng.randint(0, 30, 2000)),
+                          np.full(3500, 30),
+                          np.sort(rng.randint(31, 400, n - 5500))])
+    gid = gid.astype(np.int32)
+    cols, ops = [], []
+    for dtype, op in _MIXED[:k]:
+        cols.append(rng.randint(-1000, 1000, n).astype(dtype)
+                    if dtype == np.int32 else rng.randn(n).astype(dtype))
+        ops.append(op)
+    want = PK.seg_agg_1d(jnp.asarray(gid), [jnp.asarray(c) for c in cols],
+                         ops, interpret=True)
+    got = K.seg_scan(torch.from_numpy(gid),
+                     [torch.from_numpy(c) for c in cols], ops)
+    assert len(got) == k
+    for (dtype, op), g, w in zip(_MIXED, got, want):
+        g, w = g.numpy(), np.asarray(w)
+        assert g.dtype == w.dtype == dtype
+        if dtype == np.float32 and op == "sum":
+            # same terms, another order
+            np.testing.assert_allclose(g, w, rtol=1e-4, atol=1e-4)
+        else:
+            assert np.array_equal(g, w), op
+
+
+@pytest.mark.parametrize("case", ["lengths", "empty", "ops_count", "op",
+                                  "too_many"])
+def test_seg_scan_rejects_bad_requests(case):
+    """Mismatched lengths, no columns, ops that do not match the columns,
+    an unknown op and more columns than one launch takes all raise."""
+    gid = torch.zeros(64, dtype=torch.int32)
+    v = torch.ones(64, dtype=torch.float64)
+    vals, ops = {
+        "lengths": ([v, torch.ones(63)], ["sum", "min"]),
+        "empty": ([], []),
+        "ops_count": ([v, v], ["sum"]),
+        "op": ([v], ["mean"]),
+        "too_many": ([v] * (K.SEG_MAX_COLUMNS + 1),
+                     ["max"] * (K.SEG_MAX_COLUMNS + 1)),
+    }[case]
+    with pytest.raises(ValueError):
+        K.seg_scan(gid, vals, ops)
 
 
 # --------------------------------------------------------------------------
@@ -214,7 +270,8 @@ def test_kernel_wrappers_take_plain_version_on_cpu():
     x = torch.arange(1024, dtype=torch.int64)
     K.cumsum(x)
     K.sort_words(x)
-    K.seg_scan(torch.zeros(1024, dtype=torch.int32), x, "sum")
+    K.seg_scan(torch.zeros(1024, dtype=torch.int32), [x, x.double()],
+               ["sum", "min"])
     assert K.launch_counts() == {"seg_scan": 0, "cumsum": 0,
                                  "sort_words": 0}
     assert all(not k.shapes for k in K.KERNELS)
@@ -235,6 +292,22 @@ def test_kernel_wrapper_names_its_source_and_tpu_kernel(kernel, tpu_kernel):
         inspect.getsourcefile(tpu_kernel)).resolve()
     assert int(line) == first and src[0].startswith(
         f"def {tpu_kernel.__name__}(")
+
+
+def test_seg_scan_limits_match_the_cuda_source():
+    """The wrapper's column limit, dtype codes and op codes are the ones
+    `csrc/seg_scan.cu` takes: SS_MAX_COLS and the codes its `Column`
+    descriptor documents."""
+    root = pathlib.Path(__file__).resolve().parents[1]
+    src = (root / K.seg_scan.source).read_text()
+    cols = re.search(r"^#define SS_MAX_COLS (\d+)$", src, re.M)
+    assert cols and int(cols.group(1)) == K.SEG_MAX_COLUMNS
+    dtypes = re.search(r"int dtype;\s*// (.*)", src).group(1)
+    assert dtypes == ", ".join(f"{code} {str(dt).split('.')[1]}" for dt, code
+                               in sorted(K._SEG_DTYPES.items(),
+                                         key=lambda kv: kv[1]))
+    ops = re.search(r"int op;\s*// (.*)", src).group(1)
+    assert ops == ", ".join(f"{i} {op}" for i, op in enumerate(K.SEG_OPS))
 
 
 # --------------------------------------------------------------------------
