@@ -19,15 +19,25 @@ Phases, each printing a line:
      PyTorch version on the same inputs and timed beside it, beside one
      PyTorch library call where one computes the same function, and
      beside its bound;
-  3. queries: TPC-H lineitem at SF10 (60 M rows, one 2^26-row batch),
-     generated on the host from seed 42; q1, q6 and q18's inner lineitem
-     aggregate through TpuSession(device="cuda"), each compared with a
-     numpy oracle; the launch counts of that first run show the queries
-     went through all three kernels, and every shape a kernel was
-     launched at there that phase 2 did not cover is held against the
-     plain version too; then warm wall times, and one more warm run under
-     torch.profiler for the device's busy share and its costliest
-     kernels.
+  3. queries: TPC-H lineitem (60 M rows, one 2^26-row batch), orders
+     (15 M) and customer (1.5 M) at SF10, generated on the host from seed
+     42; q1, q6 and q18's inner lineitem aggregate, then q3, q4 and q18
+     whole (inner and semi equi-joins, limits), through
+     TpuSession(device="cuda"), each compared with a numpy oracle.  The
+     session sets spark.rapids.sql.tpu.join.partitioned.enabled=false: at
+     SF10 the JAX package's rules partition every one of these joins
+     (their build sides are estimated above 64 MB), and the port has no
+     exchange yet, so each join builds its whole right side as one batch.
+     For each query: the plan's join execs (type, build side, broadcast
+     or not), the kernel launches of its first run, the warm median of
+     3, the device busy share and the costliest kernels of one more warm
+     run under torch.profiler, and the device bytes held before its first
+     run (the tables) and at its peak.  The launch
+     counts of the first runs show the queries went through all three
+     kernels (K3 in every hash-join build, counted around the build
+     itself, and K1, K2 and K3 in q18's aggregate), and every shape a
+     kernel was launched at there that phase 2 did not cover is held
+     against the plain version too.
 The second-last line is the card as nvidia-smi names it; the last is
 {"ok": true, "device": {...}}.  Any failure raises: nothing is caught,
 and the script prints no result line without a CUDA device.
@@ -43,6 +53,9 @@ import torch
 from spark_rapids_tpu_torch import TpuSession, tpch
 from spark_rapids_tpu_torch.columnar import bucket_rows
 from spark_rapids_tpu_torch.exec.aggregate import TpuHashAggregateExec
+from spark_rapids_tpu_torch.exec.broadcast import TpuBroadcastHashJoinExec
+from spark_rapids_tpu_torch.exec.join import (TpuHashJoinExec,
+                                              TpuReorderColumnsExec)
 from spark_rapids_tpu_torch.ops import kernels as K
 
 SF = 10.0                  # TPC-H scale factor of the query phase
@@ -50,6 +63,10 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (data sheet)
 # float sums: same terms, another order
 SUM_REL_TOL = {torch.float64: 1e-12, torch.float32: 1e-4}
 REPS = 3                   # warm runs of each query
+CONF = {"spark.rapids.sql.variableFloatAgg.enabled": "true",
+        # the JAX package would partition the SF10 joins; the port builds
+        # each one's whole side (see the docstring)
+        "spark.rapids.sql.tpu.join.partitioned.enabled": "false"}
 ORDER_BY_CAP = 1024        # capacity of q1's bucket state and q18's result
 _F64, _I64, _I32 = torch.float64, torch.int64, torch.int32
 # K1's request sets, ((dtype, op), ...) per call: q18's two (the float
@@ -249,52 +266,80 @@ def check_kernels(gen: torch.Generator, dev: torch.device, shapes: list,
         checks[kernel](*shape)
 
 
-def run_queries(table: dict, device: str = "cuda") -> tuple:
-    """The three queries on the card against the numpy oracle; returns
-    the kernel launch counts of their first run and the shapes each
-    kernel was launched at there."""
+def _queries(dfs: dict) -> dict:
+    """name -> a function running that query's DataFrame."""
+    li = dfs["lineitem"]
+    out = {name: (lambda q=q: q(li)) for name, q in tpch.QUERIES.items()}
+    out.update({name: (lambda q=q: q(dfs))
+                for name, q in tpch.JOIN_QUERIES.items()})
+    return out
+
+
+def _matches(name: str, want: list, got: list) -> bool:
+    if name in tpch.TOP_N:
+        return tpch.top_rows_match(want, got, *tpch.TOP_N[name])
+    return tpch.rows_match(want, got)
+
+
+def run_queries(tables: dict, device: str = "cuda") -> tuple:
+    """The six queries on the card against the numpy oracles; returns the
+    kernel launch counts of their first runs and the shapes each kernel
+    was launched at there."""
     t0 = time.perf_counter()
-    s = TpuSession({"spark.rapids.sql.variableFloatAgg.enabled": "true"},
-                   device=device)
-    li = s.from_numpy(table, tpch.LINEITEM)
+    s = TpuSession(dict(CONF), device=device)
+    dfs = {n: s.from_numpy(t, tpch.SCHEMAS[n]) for n, t in tables.items()}
     torch.cuda.synchronize()
-    print(f"queries: lineitem rows={len(table['l_orderkey'])} capacity="
-          f"{li.plan.table.capacity} copied to the card in "
-          f"{time.perf_counter() - t0:.3f} s", flush=True)
+    print("queries: " + ", ".join(
+        f"{n} rows={df.plan.num_rows} capacity={df.plan.table.capacity}"
+        for n, df in dfs.items())
+        + f"; copied to the card in {time.perf_counter() - t0:.3f} s",
+        flush=True)
+    queries = _queries(dfs)
 
     K.reset_launches()
-    torch.cuda.reset_peak_memory_stats()
     first = {}
-    for name, q in tpch.QUERIES.items():
+    for name, q in queries.items():
         before = K.launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()
         t0 = time.perf_counter()
-        got = q(li).collect()
+        got = q().collect()
         ms = (time.perf_counter() - t0) * 1e3
         own = {k: c - before[k] for k, c in K.launch_counts().items()}
-        first[name] = (ms, got, _update_paths(s.last_plan), own)
+        first[name] = (ms, got, _update_paths(s.last_plan), own,
+                       join_nodes(s.last_plan),
+                       (resident, torch.cuda.max_memory_allocated()))
     launches = K.launch_counts()
     shapes = [(k.__name__, shape) for k in K.KERNELS
               for shape in sorted(k.shapes, key=lambda s: (-s[0], str(s)))]
-    peak = torch.cuda.max_memory_allocated()
-    for name, (ms, got, paths, own) in first.items():
-        want = tpch.ORACLES[name](table)
-        match = tpch.rows_match(want, got)
+    for name, (ms, got, paths, own, joins, mem) in first.items():
+        oracle = tpch.ORACLES[name]
+        want = oracle(tables["lineitem"]) if name in tpch.QUERIES \
+            else oracle(tables)
+        match = _matches(name, want, got)
         warm = []
         for _ in range(REPS):
             t0 = time.perf_counter()
-            tpch.QUERIES[name](li).collect()
+            queries[name]().collect()
             warm.append((time.perf_counter() - t0) * 1e3)
         print("query " + json.dumps({
             "query": name, "rows": len(got), "matches_oracle": match,
-            "first_ms": ms, "warm_ms": warm,
+            "joins": joins, "first_ms": ms, "warm_ms": warm,
             "warm_median_ms": statistics.median(warm),
             "agg_update_paths": paths, "launches": own,
-            "profile": profile_query(tpch.QUERIES[name], li)}), flush=True)
-        if not match:
-            raise AssertionError(f"{name} disagrees with the numpy oracle: "
-                                 f"{got[:3]} vs {want[:3]}")
-    print("launches in the query phase " + json.dumps(launches)
-          + f" peak_device_bytes={peak}", flush=True)
+            "resident_device_bytes": mem[0], "peak_device_bytes": mem[1],
+            "profile": profile_query(queries[name])}), flush=True)
+        if not match or not got:
+            raise AssertionError(f"{name} disagrees with the numpy oracle "
+                                 f"or is empty: {got[:3]} vs {want[:3]}")
+        unsorted = [j for j in joins if not j["build_k3_launches"]]
+        if unsorted:
+            raise AssertionError(f"{name}: hash-join builds that launched "
+                                 f"no K3: {unsorted}")
+    if not all(first["q18"][3].values()):
+        raise AssertionError(f"q18 did not launch every kernel: "
+                             f"{first['q18'][3]}")
+    print("launches in the query phase " + json.dumps(launches), flush=True)
     print("shapes launched in the query phase "
           + json.dumps([[k, [str(x) for x in s]] for k, s in shapes]),
           flush=True)
@@ -305,7 +350,23 @@ def run_queries(table: dict, device: str = "cuda") -> tuple:
     return launches, shapes
 
 
-def profile_query(q, li, top: int = 8) -> dict:
+def join_nodes(node, swapped: bool = False) -> list:
+    """The plan's join execs: class, type, the columns of the side it
+    builds, whether that side is broadcast, and whether the sides were
+    swapped (the logical left child is built)."""
+    out = []
+    if isinstance(node, TpuHashJoinExec):
+        out.append({"exec": type(node).__name__, "type": node.join_type,
+                    "build": node.children[1].schema.names,
+                    "broadcast": isinstance(node, TpuBroadcastHashJoinExec),
+                    "swapped": swapped,
+                    "build_k3_launches": node.build_sorts})
+    for c in node.children:
+        out += join_nodes(c, isinstance(node, TpuReorderColumnsExec))
+    return out
+
+
+def profile_query(q, top: int = 8) -> dict:
     """One more warm run under torch.profiler: the wall time, the summed
     device time of its kernels (busy share = device / wall) and the
     kernels that took the most device time."""
@@ -314,7 +375,7 @@ def profile_query(q, li, top: int = 8) -> dict:
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        q(li).collect()
+        q().collect()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = [e for e in prof.key_averages()
@@ -350,9 +411,9 @@ def main() -> int:
           flush=True)
 
     t0 = time.perf_counter()
-    table = tpch.generate_lineitem(SF)
-    cap = bucket_rows(len(table["l_orderkey"]))
-    print(f"lineitem: sf={SF}, generated on the host in "
+    tables = tpch.generate(SF)
+    cap = bucket_rows(len(tables["lineitem"]["l_orderkey"]))
+    print(f"tables: sf={SF}, generated on the host in "
           f"{time.perf_counter() - t0:.3f} s", flush=True)
 
     gen = torch.Generator(device="cuda").manual_seed(42)
@@ -361,7 +422,7 @@ def main() -> int:
     checked = phase2_shapes(cap)
     check_kernels(gen, dev, checked, report)
     torch.cuda.empty_cache()
-    launches, shapes = run_queries(table)
+    launches, shapes = run_queries(tables)
     torch.cuda.empty_cache()
     rest = [ks for ks in shapes if ks not in checked]
     print(f"kernels: {len(shapes) - len(rest)} of the query phase's "

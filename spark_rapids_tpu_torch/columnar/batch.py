@@ -27,13 +27,17 @@ def bucket_rows(n: int, minimum: int = 1024) -> int:
 
 
 class ColumnarBatch:
-    __slots__ = ("columns", "sel", "schema")
+    __slots__ = ("columns", "sel", "schema", "known_rows")
 
     def __init__(self, columns: Sequence[Column], sel: torch.Tensor,
                  schema: Schema):
         self.columns = tuple(columns)
         self.sel = sel
         self.schema = schema
+        # the live-row count when its producer already holds it on the
+        # host (a join's fetched total), so num_rows_host skips a device
+        # read; every structural transform drops it
+        self.known_rows: Optional[int] = None
 
     # ---- metadata -----------------------------------------------------------
 
@@ -55,7 +59,13 @@ class ColumnarBatch:
         return self.sel.sum(dtype=torch.int32)
 
     def num_rows_host(self) -> int:
+        if self.known_rows is not None:
+            return self.known_rows
         return int(self.num_rows())
+
+    @property
+    def num_cols(self) -> int:
+        return len(self.columns)
 
     # ---- structural transforms ---------------------------------------------
 
@@ -72,6 +82,13 @@ class ColumnarBatch:
         if sel is None:
             sel = self.sel[indices.long().clamp(0, self.capacity - 1)]
         return ColumnarBatch(cols, sel, self.schema)
+
+    def select_columns(self, indices: Sequence[int],
+                       schema: Optional[Schema] = None) -> "ColumnarBatch":
+        cols = [self.columns[i] for i in indices]
+        if schema is None:
+            schema = Schema([self.schema[i] for i in indices])
+        return ColumnarBatch(cols, self.sel, schema)
 
     def shrink_to(self, new_cap: int) -> "ColumnarBatch":
         """Live rows gathered, in order, into a smaller-capacity batch (the
@@ -129,6 +146,24 @@ class ColumnarBatch:
         sel = torch.arange(cap, device=device) < n
         return ColumnarBatch(cols, sel, schema)
 
+    def arrow_nbytes(self, n: int) -> int:
+        """Bytes of the first `n` rows as Arrow lays them out: n x the
+        value width (booleans packed 8 to a byte, strings 4 bytes of
+        offset a row plus their UTF-8 bytes), and a bitmap of n / 8 bytes
+        for a column with a null.  This is the size of an in-memory table
+        the JAX package's planner reads (pyarrow's Table.nbytes)."""
+        total = 0
+        for c in self.columns:
+            if not bool(c.valid[:n].all()):
+                total += -(-n // 8)
+            if c.dtype.is_string:
+                total += 4 * n + int(c.lengths[:n].sum())
+            elif c.dtype.name == "boolean":
+                total += -(-n // 8)
+            else:
+                total += n * c.dtype.np_dtype.itemsize
+        return total
+
     def live_rows(self) -> torch.Tensor:
         """Indices of the live rows, in order, on the batch's device."""
         return torch.nonzero(self.sel).flatten()
@@ -140,7 +175,9 @@ class ColumnarBatch:
 
     def to_pydict(self) -> Dict[str, np.ndarray]:
         """Live rows as numpy columns; a column with nulls comes back as a
-        masked array."""
+        masked array.  Raises ValueError when two columns share a name
+        (a dict would keep only one of them)."""
+        check_unique_names(self.schema)
         rows = self.live_rows()
         out = {}
         for f, c in zip(self.schema, self.columns):
@@ -151,6 +188,17 @@ class ColumnarBatch:
 
     def __repr__(self):
         return f"ColumnarBatch(cap={self.capacity}, schema={self.schema!r})"
+
+
+def check_unique_names(schema: Schema) -> None:
+    """Raise ValueError naming a column name the schema repeats."""
+    seen = set()
+    for name in schema.names:
+        if name in seen:
+            raise ValueError(
+                f"column name {name!r} is repeated in {schema.names}; "
+                "alias the columns apart to get them as a dict")
+        seen.add(name)
 
 
 def _host_values(values, dtype) -> Tuple[np.ndarray, Optional[np.ndarray]]:
@@ -239,4 +287,4 @@ def concat_batches(batches: Sequence[ColumnarBatch], packed: bool = True,
 
 
 __all__ = ["ColumnarBatch", "bucket_rows", "bucket_strlen", "batch_from_numpy",
-           "concat_batches"]
+           "check_unique_names", "concat_batches"]

@@ -79,12 +79,13 @@ class Column:
         n = len(arr)
         width = arr.dtype.itemsize
         raw = (np.frombuffer(arr.tobytes(), dtype=np.uint8).reshape(n, width)
-               if n and width else np.zeros((n, 0), np.uint8))
+               if n and width else np.zeros((n, width), np.uint8))
         # numpy drops trailing NUL bytes: a row's length is one past its
         # last non-zero byte
         nz = raw != 0
-        lens = np.where(nz.any(axis=1),
-                        width - np.argmax(nz[:, ::-1], axis=1), 0)
+        lens = (np.where(nz.any(axis=1),
+                         width - np.argmax(nz[:, ::-1], axis=1), 0)
+                if raw.shape[1] else np.zeros(n, dtype=np.int64))
         vfull = np.zeros(capacity, dtype=np.bool_)
         vfull[:n] = True if valid is None else valid
         ml = max_len if max_len is not None else bucket_strlen(

@@ -1,11 +1,13 @@
 """The configuration keys the port reads.
 
-A copy, with the same keys and defaults, of the entries of
-spark_rapids_tpu/config.py that the port's operators consult.  Device
-selection is a constructor argument of TpuSession, not a key.
+A copy, with the same keys, defaults and parsers, of the entries of
+spark_rapids_tpu/config.py that the port's operators and planner
+consult.  Device selection is a constructor argument of TpuSession, not
+a key.
 """
 from __future__ import annotations
 
+import re
 from typing import Any, Callable, Dict, Optional
 
 _REGISTRY: "Dict[str, ConfEntry]" = {}
@@ -20,6 +22,35 @@ def _to_bool(v) -> bool:
     if s in ("false", "0", "no"):
         return False
     raise ValueError(f"not a boolean: {v!r}")
+
+
+_BYTE_SUFFIXES = {"b": 1, "k": 1 << 10, "kb": 1 << 10, "m": 1 << 20,
+                  "mb": 1 << 20, "g": 1 << 30, "gb": 1 << 30, "t": 1 << 40,
+                  "tb": 1 << 40}
+
+
+def to_bytes(v) -> int:
+    """Parse '2g', '512m', '1024' -> bytes."""
+    if isinstance(v, (int, float)):
+        return int(v)
+    m = re.fullmatch(r"\s*(\d+(?:\.\d+)?)\s*([a-zA-Z]*)\s*", str(v))
+    if not m:
+        raise ValueError(f"not a byte size: {v!r}")
+    num, suf = float(m.group(1)), m.group(2).lower()
+    if suf == "":
+        return int(num)
+    if suf not in _BYTE_SUFFIXES:
+        raise ValueError(f"unknown byte suffix {suf!r} in {v!r}")
+    return int(num * _BYTE_SUFFIXES[suf])
+
+
+def _to_bytes_or_disabled(v) -> int:
+    """A byte size, or a negative integer meaning 'disabled' (Spark's
+    autoBroadcastJoinThreshold=-1)."""
+    s = str(v).strip()
+    if re.fullmatch(r"-\d+", s):
+        return int(s)
+    return to_bytes(v)
 
 
 class ConfEntry:
@@ -55,6 +86,22 @@ SORT_PACKED_ENABLED = ConfEntry(
     "into 64-bit words with the row id in the low bits and order rows with "
     "single-operand word sorts; false restores the multi-key lexsort.",
     _to_bool)
+
+PARTITIONED_JOIN_ENABLED = ConfEntry(
+    "spark.rapids.sql.tpu.join.partitioned.enabled", True,
+    "Insert hash-partition exchanges around non-broadcast equi-joins so "
+    "the build side is bounded per partition (EnsureRequirements "
+    "analogue; reference GpuShuffledHashJoinExec).", _to_bool)
+PARTITIONED_JOIN_THRESHOLD = ConfEntry(
+    "spark.rapids.sql.tpu.join.partitioned.threshold", 64 << 20,
+    "Estimated build-side bytes above which a non-broadcast join is "
+    "planned with partition exchanges; below it the whole build side is "
+    "one batch.  Unknown sizes partition.", to_bytes)
+AUTO_BROADCAST_JOIN_THRESHOLD = ConfEntry(
+    "spark.sql.autoBroadcastJoinThreshold", 10 << 20,
+    "Maximum estimated size in bytes of a join build side that will be "
+    "broadcast to every consumer instead of shuffled (Spark's conf key; "
+    "-1 disables broadcast joins).", _to_bytes_or_disabled)
 
 
 class TpuConf:

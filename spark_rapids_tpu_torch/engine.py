@@ -1,6 +1,5 @@
 """Session and DataFrame API of the port (the slice of
-spark_rapids_tpu/engine.py that TPC-H q1, q6 and the q18 lineitem
-aggregate use).
+spark_rapids_tpu/engine.py that TPC-H q1, q3, q4, q6 and q18 use).
 
     s = TpuSession({"spark.rapids.sql.variableFloatAgg.enabled": "true"})
     df = s.from_numpy({"k": np.array([1, 2, 1]), "v": np.array([.5, 1., 2.])})
@@ -20,6 +19,7 @@ import numpy as np
 import torch
 
 from .columnar import ColumnarBatch, bucket_rows
+from .columnar.batch import check_unique_names
 from .config import TpuConf
 from .device import resolve_device
 from .exec.base import ExecContext, ExecNode
@@ -27,6 +27,7 @@ from .exec.basic import DeviceToHostExec
 from .plan import logical as L
 from .plan.logical import ColumnExpr, SortOrder, col, lit
 from .plan.physical import convert, plan_schema
+from .plan.pushdown import prune_columns
 from .types import (BooleanType, ByteType, DataType, DateType, DoubleType,
                     FloatType, IntegerType, LongType, Schema, ShortType,
                     StringType, StructField, TimestampType)
@@ -76,10 +77,11 @@ class TpuSession:
         n = len(next(iter(columns.values()))) if columns else 0
         table = ColumnarBatch.from_numpy(columns, schema, self.device,
                                          capacity=bucket_rows(max(n, 1)))
-        return DataFrame(self, L.LogicalScan(table, n, schema))
+        return DataFrame(self, L.LogicalScan(table, n, schema,
+                                             table.arrow_nbytes(n)))
 
     def plan(self, logical: L.LogicalPlan) -> ExecNode:
-        return convert(logical, self.conf)
+        return convert(prune_columns(logical, self.conf), self.conf)
 
     def _execute(self, logical: L.LogicalPlan, rows: bool):
         root = DeviceToHostExec(self.plan(logical))
@@ -115,11 +117,40 @@ class DataFrame:
     def agg(self, *aggs) -> "DataFrame":
         return GroupedData(self, []).agg(*aggs)
 
+    def join(self, other: "DataFrame", on=None, how: str = "inner"
+             ) -> "DataFrame":
+        """Join with `other` on a condition, a column name or a list of
+        names (USING).  `how` takes Spark's spellings; the port plans
+        inner, left_semi and left_anti joins with equi keys and raises for
+        the others when the plan is made."""
+        how = how.replace("outer", "").rstrip("_") or how
+        how = {"leftsemi": "left_semi", "leftanti": "left_anti"}.get(how,
+                                                                     how)
+        if isinstance(on, (list, tuple)) and on \
+                and all(isinstance(x, str) for x in on):
+            return DataFrame(self.session, L.LogicalJoin(
+                self.plan, other.plan, how, using=list(on)))
+        if isinstance(on, str):
+            return DataFrame(self.session, L.LogicalJoin(
+                self.plan, other.plan, how, using=[on]))
+        return DataFrame(self.session, L.LogicalJoin(
+            self.plan, other.plan, how, condition=on))
+
     def order_by(self, *orders) -> "DataFrame":
         os = [o if isinstance(o, SortOrder)
               else SortOrder(col(o) if isinstance(o, str) else o)
               for o in orders]
         return DataFrame(self.session, L.LogicalSort(os, self.plan))
+
+    def limit(self, n: int) -> "DataFrame":
+        return DataFrame(self.session, L.LogicalLimit(n, self.plan))
+
+    def hint(self, name: str, *args) -> "DataFrame":
+        """Spark-style plan hints; "broadcast" marks this side for a
+        broadcast hash join."""
+        hints = set(getattr(self.plan, "_hints", ())) | {name.lower()}
+        self.plan._hints = hints
+        return self
 
     @property
     def schema(self) -> Schema:
@@ -136,7 +167,9 @@ class DataFrame:
         return out
 
     def to_pydict(self) -> Dict[str, np.ndarray]:
-        """The result as numpy columns (masked arrays where nulls occur)."""
+        """The result as numpy columns (masked arrays where nulls occur).
+        Raises ValueError when two output columns share a name."""
+        check_unique_names(self.schema)
         parts = self.session._execute(self.plan, rows=False)
         names = self.schema.names
         if not parts:

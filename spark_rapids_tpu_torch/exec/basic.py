@@ -1,4 +1,4 @@
-"""Basic operators: the in-memory scan, project, filter, and the
+"""Basic operators: the in-memory scan, project, filter, limit, and the
 device-to-host edge (port of the device half of
 spark_rapids_tpu/exec/basic.py).
 
@@ -14,7 +14,7 @@ import numpy as np
 import torch
 
 from ..columnar import Column, ColumnarBatch, bucket_rows
-from ..config import MAX_READER_BATCH_SIZE_ROWS
+from ..config import MAX_READER_BATCH_SIZE_ROWS, SORT_PACKED_ENABLED
 from ..ops import expressions as E
 from ..types import Schema, StructField
 from .base import ExecContext, ExecNode
@@ -28,10 +28,14 @@ def _pred_keep(col: Column) -> torch.Tensor:
 class TpuScanMemoryExec(ExecNode):
     """Scan of a table that already lives on the device (one batch at the
     table's capacity), cut into batches of at most
-    `spark.rapids.sql.reader.batchSizeRows` rows."""
+    `spark.rapids.sql.reader.batchSizeRows` rows.  `schema` names the
+    columns it produces (a pruned subset of the table's)."""
 
-    def __init__(self, table: ColumnarBatch, num_rows: int):
+    def __init__(self, table: ColumnarBatch, num_rows: int, schema: Schema):
         super().__init__()
+        if schema != table.schema:
+            table = table.select_columns(
+                [table.schema.index_of(n) for n in schema.names], schema)
         self.table = table
         self.num_rows = num_rows
 
@@ -92,6 +96,39 @@ class TpuFilterExec(ExecNode):
     def execute(self, ctx):
         for batch in self.children[0].execute(ctx):
             yield batch.filter(_pred_keep(self.condition.eval(batch)))
+
+
+class TpuLocalLimitExec(ExecNode):
+    """The first n live rows of the stream: each batch compacted (live
+    rows to the front, in order), then cut by its selection mask."""
+
+    def __init__(self, n: int, child: ExecNode):
+        super().__init__(child)
+        self.n = n
+
+    @property
+    def schema(self):
+        return self.children[0].schema
+
+    def execute(self, ctx):
+        packed = ctx.conf.get(SORT_PACKED_ENABLED)
+        remaining = self.n
+        for batch in self.children[0].execute(ctx):
+            if remaining <= 0:
+                return
+            batch = batch.compact(packed)
+            count = batch.num_rows_host()
+            if count > remaining:
+                batch = batch.with_sel(
+                    torch.arange(batch.capacity, device=batch.device)
+                    < remaining)
+                count = remaining
+            remaining -= count
+            yield batch
+
+
+class TpuGlobalLimitExec(TpuLocalLimitExec):
+    """The same cut on the single merged stream."""
 
 
 class DeviceToHostExec(ExecNode):

@@ -12,7 +12,7 @@ from typing import Any, Optional, Sequence
 import numpy as np
 import torch
 
-from ..columnar import Column, ColumnarBatch
+from ..columnar import Column, ColumnarBatch, bucket_strlen
 from ..types import (BooleanType, DataType, DoubleType, IntegerType,
                      LongType, NullType, StringType, promote)
 
@@ -80,8 +80,17 @@ class Literal(Expression):
                 self._dtype if self._dtype is not NullType else LongType,
                 cap, dev)
         if self._dtype.is_string:
-            return Column.from_strings(
-                np.full(cap, self.value.encode("utf-8")), None, cap, dev)
+            # one row of bytes on the device, broadcast to every row (no
+            # host array of the batch's capacity); read-only, like every
+            # column
+            raw = self.value.encode("utf-8")
+            row = torch.zeros(bucket_strlen(len(raw)), dtype=torch.uint8)
+            row[:len(raw)] = torch.tensor(list(raw), dtype=torch.uint8)
+            return Column(row.to(dev).expand(cap, row.numel()),
+                          torch.ones(cap, dtype=torch.bool, device=dev),
+                          StringType,
+                          torch.full((cap,), len(raw), dtype=torch.int32,
+                                     device=dev))
         data = torch.full((cap,), self.value, dtype=self._dtype.torch_dtype,
                           device=dev)
         return Column(data, torch.ones(cap, dtype=torch.bool, device=dev),

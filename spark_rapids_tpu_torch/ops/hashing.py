@@ -1,8 +1,9 @@
-"""64-bit mix hashes for sort-based grouping (port of the grouping half of
-spark_rapids_tpu/ops/hashing.py).
+"""64-bit mix hashes for sort-based grouping and joins (port of the
+grouping half of spark_rapids_tpu/ops/hashing.py).
 
 Grouping sorts rows by two independent 64-bit hashes (h1, h2) and checks
-key equality against the previous row.  The hashes are bit-identical to
+key equality against the previous row; a join sorts its build side by h1
+and verifies the keys of every candidate pair.  The hashes are bit-identical to
 the JAX package's, so both packages order groups the same way.  uint64
 values are carried in int64 tensors: right shifts are made logical by
 masking; multiplication, xor and shifts left wrap as uint64 arithmetic
@@ -98,12 +99,21 @@ def _hash_bytes(col: Column, seed: int) -> torch.Tensor:
     return mix64(h ^ lengths)
 
 
+def _hash_columns(cols, live: torch.Tensor, seed) -> torch.Tensor:
+    h = torch.zeros(live.shape, dtype=torch.int64, device=live.device)
+    for i, c in enumerate(cols):
+        h = mix64(h ^ hash_column64(c, seed(i)))
+    return torch.where(live, h, -1)
+
+
+def hash_columns_h1(cols, live: torch.Tensor) -> torch.Tensor:
+    """The h1 of hash_columns_double alone (what a join sorts and probes
+    by)."""
+    return _hash_columns(cols, live, lambda i: 2 * i + 1)
+
+
 def hash_columns_double(cols, live: torch.Tensor):
     """(h1, h2) independent 64-bit hashes over the key columns; dead rows
     get all-ones so an ascending unsigned sort puts them last."""
-    h1 = torch.zeros(live.shape, dtype=torch.int64, device=live.device)
-    h2 = torch.zeros(live.shape, dtype=torch.int64, device=live.device)
-    for i, c in enumerate(cols):
-        h1 = mix64(h1 ^ hash_column64(c, 2 * i + 1))
-        h2 = mix64(h2 ^ hash_column64(c, 7919 * (i + 1)))
-    return torch.where(live, h1, -1), torch.where(live, h2, -1)
+    return (hash_columns_h1(cols, live),
+            _hash_columns(cols, live, lambda i: 7919 * (i + 1)))

@@ -1,5 +1,9 @@
 """Analysis: resolve the unresolved DSL against child schemas (port of the
-slice's part of spark_rapids_tpu/plan/analysis.py).
+slice's part of spark_rapids_tpu/plan/analysis.py), and a join's keys and
+residual condition (port of `_tag_join` in spark_rapids_tpu/plan/
+tagging.py; the CPU placement tagging does is not ported, so where the
+JAX package would send a join to its CPU executor the port raises
+NotImplementedError with the same message).
 
 Produces typed, bound Expression trees.  Type coercion follows the JAX
 package's `coerce_pair`: numeric pairs promote inside the binary op, and
@@ -11,12 +15,14 @@ from __future__ import annotations
 
 import datetime
 import re
-from typing import Tuple
+from typing import List, Optional, Tuple
 
 from ..ops import expressions as E
 from ..ops.aggregates import AGG_FUNCS, AggregateExpression
-from ..types import DateType, NullType, Schema
-from .logical import ColumnExpr
+from ..exec.join import joined_schema
+from ..ops.cast import Cast
+from ..types import DateType, NullType, Schema, promote
+from .logical import ColumnExpr, LogicalJoin, col
 
 _DATE_RE = re.compile(r"(\d{4})-(\d{1,2})-(\d{1,2})")
 _EPOCH = datetime.date(1970, 1, 1)
@@ -94,3 +100,95 @@ def resolve(ce, schema: Schema) -> E.Expression:
         return E.EXPRESSIONS[op](*args)
     raise NotImplementedError(
         f"expression {op!r} is not in the port's slice")
+
+
+# --------------------------------------------------------------------------
+# joins
+# --------------------------------------------------------------------------
+
+# the join types the JAX package runs on its device
+_TPU_JOIN_TYPES = {"inner", "left", "left_outer", "left_semi", "left_anti",
+                   "full", "full_outer", "right", "right_outer"}
+# the ones the port has
+_PORTED_JOIN_TYPES = ("inner", "left_semi", "left_anti")
+
+
+def split_equi(cond: ColumnExpr):
+    """A join condition's conjuncts split into equi key pairs and the
+    residual (the other conjuncts, ANDed; None when there are none)."""
+    eqs, residual = [], []
+
+    def walk(ce):
+        if ce.op == "And":
+            walk(ce.args[0])
+            walk(ce.args[1])
+        elif ce.op == "EqualTo":
+            eqs.append((ce.args[0], ce.args[1]))
+        else:
+            residual.append(ce)
+    walk(cond)
+    res = None
+    for r in residual:
+        res = r if res is None else (res & r)
+    return eqs, res
+
+
+def resolve_join(plan: LogicalJoin, ls: Schema, rs: Schema
+                 ) -> Tuple[List[E.Expression], List[E.Expression],
+                            Optional[E.Expression]]:
+    """(left keys, right keys, residual condition) of a join, each key
+    pair of one type.  Raises NotImplementedError for what the port does
+    not plan: a join type other than inner, left_semi and left_anti, and
+    a join without an equi key."""
+    jt = plan.join_type
+    if jt not in _TPU_JOIN_TYPES:
+        raise NotImplementedError(
+            f"{jt} joins are not supported on TPU "
+            "(Inner/Left/Right/Full/LeftSemi/LeftAnti; the reference "
+            "stops at Inner/Left/LeftSemi/LeftAnti — device RIGHT and "
+            "FULL OUTER go beyond it)")
+    if jt not in _PORTED_JOIN_TYPES:
+        raise NotImplementedError(
+            f"{jt} joins are not ported yet (inner, left_semi and left_anti "
+            "are): outer joins wait for their unmatched-row tail")
+    lkeys, rkeys, cond = [], [], None
+    if plan.using:
+        for name in plan.using:
+            lkeys.append(resolve(col(name), ls))
+            rkeys.append(resolve(col(name), rs))
+    elif plan.condition is not None:
+        eqs, residual = split_equi(plan.condition)
+        for lc, rc in eqs:
+            try:
+                lk, rk = resolve(lc, ls), resolve(rc, rs)
+            except AnalysisError:
+                lk, rk = resolve(rc, ls), resolve(lc, rs)
+            lkeys.append(lk)
+            rkeys.append(rk)
+        if residual is not None:
+            cond = resolve(residual, joined_schema(ls, rs))
+    if not lkeys:
+        raise NotImplementedError(
+            "join without equi-join keys is not supported on TPU (no "
+            "cross/theta join)")
+    # int32 against int64 hashes differently: a key pair of two numeric
+    # types is widened to one by a materialised cast
+    for i, (lk, rk) in enumerate(zip(lkeys, rkeys)):
+        if lk.dtype is rk.dtype:
+            continue
+        try:
+            lk, rk = coerce_pair(lk, rk, "EqualTo")
+        except AnalysisError as e:
+            raise NotImplementedError(f"join key: {e}") from None
+        if lk.dtype is not rk.dtype:
+            if not (lk.dtype.is_numeric and rk.dtype.is_numeric):
+                raise NotImplementedError(
+                    f"join key type mismatch {lk.dtype.name} vs "
+                    f"{rk.dtype.name} has no implicit coercion")
+            target = promote(lk.dtype, rk.dtype)
+            if lk.dtype is not target:
+                lk = Cast(lk, target)
+            if rk.dtype is not target:
+                rk = Cast(rk, target)
+        lkeys[i], rkeys[i] = lk, rk
+    return lkeys, rkeys, cond

@@ -2,12 +2,12 @@
 spark_rapids_tpu/plan/logical.py): `col`, `lit`, the arithmetic,
 comparison and boolean operators, `between`, the aggregate functions sum,
 avg, count, min and max, `SortOrder`, and the scan, filter, project,
-aggregate and sort nodes.
+aggregate, join, sort and limit nodes.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 from ..types import Schema
 
@@ -157,12 +157,16 @@ class LogicalPlan:
 
 
 class LogicalScan(LogicalPlan):
-    """An in-memory table already on the device (a ColumnarBatch)."""
+    """An in-memory table already on the device (a ColumnarBatch).
+    `schema` may name a subset of the table's columns (column pruning);
+    `nbytes` is the whole table's size as Arrow lays it out, the
+    planner's size estimate of the scan."""
 
-    def __init__(self, table, num_rows: int, schema: Schema):
+    def __init__(self, table, num_rows: int, schema: Schema, nbytes: int):
         self.table = table
         self.num_rows = num_rows
         self.schema = schema
+        self.nbytes = nbytes
 
 
 class LogicalProject(LogicalPlan):
@@ -185,8 +189,24 @@ class LogicalAggregate(LogicalPlan):
         self.children = (child,)
 
 
+class LogicalJoin(LogicalPlan):
+    def __init__(self, left: LogicalPlan, right: LogicalPlan,
+                 join_type: str, condition: Optional[ColumnExpr] = None,
+                 using: Optional[List[str]] = None):
+        self.join_type = join_type
+        self.condition = condition
+        self.using = using
+        self.children = (left, right)
+
+
 class LogicalSort(LogicalPlan):
     def __init__(self, orders: Sequence[SortOrder], child: LogicalPlan):
         self.orders = [o if isinstance(o, SortOrder) else SortOrder(o)
                        for o in orders]
+        self.children = (child,)
+
+
+class LogicalLimit(LogicalPlan):
+    def __init__(self, n: int, child: LogicalPlan):
+        self.n = n
         self.children = (child,)

@@ -2,30 +2,54 @@
 port's execs.
 
 The JAX package tags every node for the device or the CPU
-(plan/tagging.py, overrides.py), inserts transitions between them
-(transitions.py) and pushes filters and projections into scans
-(pushdown.py).  The port has no CPU executor, so none of that applies
+(plan/tagging.py, overrides.py) and inserts transitions between them
+(transitions.py).  The port has no CPU executor, so none of that applies
 yet: every node becomes its device exec, and a node, expression or
 aggregate outside the slice raises NotImplementedError here, at planning
-time.
+time.  The session prunes the scans' columns first (plan/pushdown.py).
+
+A join is planned by the JAX package's rules (its plan/physical.py), so
+both packages choose the same exec and the same build side:
+  * an inner join without a residual condition builds its left child
+    instead (the sides swapped, the columns reordered back after) when
+    that child is hinted for broadcast, or estimated at less than half
+    the right child's bytes, unless the right child is hinted;
+  * the build side is broadcast when hinted or estimated at most
+    `spark.sql.autoBroadcastJoinThreshold` bytes;
+  * otherwise the JAX package partitions the join when the build side
+    is estimated above `spark.rapids.sql.tpu.join.partitioned.threshold`
+    (or unknown).  The port has no exchange yet, so it raises there
+    unless `spark.rapids.sql.tpu.join.partitioned.enabled` is false, and
+    builds the whole right side as one batch.
+Estimates are the JAX package's: rows from the scans (kept through row-
+local nodes, a limit's n, one row for a global aggregate, the larger
+side for a join, the left side for semi/anti) times the output schema's
+width (strings at 32 bytes); a scan's bytes are its table's.
 """
 from __future__ import annotations
 
-from ..config import VARIABLE_FLOAT_AGG, TpuConf
+from typing import Optional
+
+from ..config import (AUTO_BROADCAST_JOIN_THRESHOLD,
+                      PARTITIONED_JOIN_ENABLED, PARTITIONED_JOIN_THRESHOLD,
+                      VARIABLE_FLOAT_AGG, TpuConf)
 from ..exec.aggregate import TpuHashAggregateExec
 from ..exec.base import ExecNode
-from ..exec.basic import TpuFilterExec, TpuProjectExec, TpuScanMemoryExec
+from ..exec.basic import (TpuFilterExec, TpuGlobalLimitExec, TpuProjectExec,
+                          TpuScanMemoryExec)
+from ..exec.broadcast import TpuBroadcastExchangeExec, TpuBroadcastHashJoinExec
+from ..exec.join import TpuHashJoinExec, TpuReorderColumnsExec, joined_schema
 from ..exec.sort import TpuSortExec
 from ..ops.aggregates import AggregateExpression
 from ..types import Schema, StructField
 from . import logical as L
-from .analysis import resolve
+from .analysis import resolve, resolve_join
 
 
 def plan_schema(plan: L.LogicalPlan, conf: TpuConf) -> Schema:
     if isinstance(plan, L.LogicalScan):
         return plan.schema
-    if isinstance(plan, (L.LogicalFilter, L.LogicalSort)):
+    if isinstance(plan, (L.LogicalFilter, L.LogicalSort, L.LogicalLimit)):
         return plan_schema(plan.children[0], conf)
     if isinstance(plan, (L.LogicalProject, L.LogicalAggregate)):
         child = plan_schema(plan.children[0], conf)
@@ -33,6 +57,15 @@ def plan_schema(plan: L.LogicalPlan, conf: TpuConf) -> Schema:
                  else plan.grouping + plan.aggregates)
         return Schema([StructField(ce.output_name, resolve(ce, child).dtype)
                        for ce in exprs])
+    if isinstance(plan, L.LogicalJoin):
+        ls = plan_schema(plan.children[0], conf)
+        rs = plan_schema(plan.children[1], conf)
+        if plan.join_type in ("left_semi", "left_anti"):
+            return ls
+        if plan.using:
+            return Schema(list(ls.fields)
+                          + [f for f in rs if f.name not in plan.using])
+        return Schema(list(ls.fields) + list(rs.fields))
     raise NotImplementedError(
         f"{type(plan).__name__} is not in the port's slice")
 
@@ -65,7 +98,10 @@ def _aggregate(plan: L.LogicalAggregate, child: ExecNode,
 def convert(plan: L.LogicalPlan, conf: TpuConf) -> ExecNode:
     """Logical plan -> physical exec tree."""
     if isinstance(plan, L.LogicalScan):
-        return TpuScanMemoryExec(plan.table, plan.num_rows)
+        return TpuScanMemoryExec(plan.table, plan.num_rows, plan.schema)
+    if isinstance(plan, L.LogicalJoin):
+        return _join(plan, conf, convert(plan.children[0], conf),
+                     convert(plan.children[1], conf))
     child = convert(plan.children[0], conf)
     schema = child.schema
     if isinstance(plan, L.LogicalProject):
@@ -80,5 +116,152 @@ def convert(plan: L.LogicalPlan, conf: TpuConf) -> ExecNode:
                            [o.ascending for o in plan.orders],
                            [o.effective_nulls_first for o in plan.orders],
                            child)
+    if isinstance(plan, L.LogicalLimit):
+        return TpuGlobalLimitExec(plan.n, child)
     raise NotImplementedError(
         f"{type(plan).__name__} is not in the port's slice")
+
+
+# --------------------------------------------------------------------------
+# joins
+# --------------------------------------------------------------------------
+
+def _hints(plan: L.LogicalPlan):
+    return getattr(plan, "_hints", ())
+
+
+def _join(plan: L.LogicalJoin, conf: TpuConf, lc: ExecNode,
+          rc: ExecNode) -> ExecNode:
+    lkeys, rkeys, cond = resolve_join(plan, lc.schema, rc.schema)
+    out_schema = plan_schema(plan, conf)
+    jt = plan.join_type
+    using_drop = [len(lc.schema) + rc.schema.index_of(n)
+                  for n in plan.using or ()]
+    build_plan = plan.children[1]
+    join_schema = out_schema
+    reorder = None
+    build_bytes = None  # the estimate, when the swap check made it
+    if jt == "inner" and cond is None \
+            and "broadcast" not in _hints(plan.children[1]):
+        # build the smaller side: the execs always build their right
+        # child, so a clearly smaller (or hinted) left child swaps in
+        lb = _estimate_plan_bytes(plan.children[0], conf)
+        rb = _estimate_plan_bytes(plan.children[1], conf)
+        if "broadcast" in _hints(plan.children[0]) or (
+                lb is not None and rb is not None and lb * 2 < rb):
+            lc, rc = rc, lc
+            lkeys, rkeys = rkeys, lkeys
+            build_plan, join_schema, using_drop, reorder = \
+                _swap_sides(plan, conf)
+            build_bytes = lb
+        else:
+            build_bytes = rb
+
+    def wrap(node: ExecNode) -> ExecNode:
+        return node if reorder is None \
+            else TpuReorderColumnsExec(node, reorder, out_schema)
+
+    if _should_broadcast_build(conf, build_plan, build_bytes):
+        return wrap(TpuBroadcastHashJoinExec(
+            lc, TpuBroadcastExchangeExec(rc), jt, lkeys, rkeys, cond,
+            join_schema, using_drop))
+    if _should_partition_join(conf, build_plan, build_bytes):
+        raise NotImplementedError(
+            "this join's build side is estimated above "
+            f"{PARTITIONED_JOIN_THRESHOLD.key} (or is of unknown size), so "
+            "the JAX package plans a partitioned hash join, whose exchange "
+            f"is not ported; set {PARTITIONED_JOIN_ENABLED.key}=false to "
+            "build the whole side as one batch")
+    return wrap(TpuHashJoinExec(lc, rc, jt, lkeys, rkeys, cond, join_schema,
+                                using_drop))
+
+
+def _swap_sides(plan: L.LogicalJoin, conf: TpuConf):
+    """Column bookkeeping for an inner join run with its children
+    swapped: the exec emits [R..., L... renamed on collision], and
+    `reorder` selects the logical [L..., R minus USING keys] back (a USING
+    key comes from the left block: the values are equal across sides).
+    Returns (build_plan, join_schema, using_drop, reorder)."""
+    ls = plan_schema(plan.children[0], conf)
+    rs = plan_schema(plan.children[1], conf)
+    n_l, n_r = len(ls), len(rs)
+    reorder = list(range(n_r, n_r + n_l))
+    if plan.using:
+        reorder += [i for i, f in enumerate(rs) if f.name not in plan.using]
+    else:
+        reorder += list(range(n_r))
+    return plan.children[0], joined_schema(rs, ls), [], reorder
+
+
+def _should_partition_join(conf: TpuConf, build_plan: L.LogicalPlan,
+                           build_bytes: Optional[int]) -> bool:
+    """Whether the JAX package would partition this non-broadcast join:
+    its build side is estimated above the threshold, or unknown."""
+    if not conf.get(PARTITIONED_JOIN_ENABLED):
+        return False
+    est = build_bytes if build_bytes is not None \
+        else _estimate_plan_bytes(build_plan, conf)
+    return est is None or est > int(conf.get(PARTITIONED_JOIN_THRESHOLD))
+
+
+def _should_broadcast_build(conf: TpuConf, build_plan: L.LogicalPlan,
+                            build_bytes: Optional[int]) -> bool:
+    """Broadcast the build side when hinted, or when its estimated size is
+    at most spark.sql.autoBroadcastJoinThreshold (negative: never)."""
+    if "broadcast" in _hints(build_plan):
+        return True
+    threshold = conf.get(AUTO_BROADCAST_JOIN_THRESHOLD)
+    if threshold is None or int(threshold) < 0:
+        return False
+    est = build_bytes if build_bytes is not None \
+        else _estimate_plan_bytes(build_plan, conf)
+    return est is not None and est <= int(threshold)
+
+
+def _schema_row_bytes(schema: Schema) -> int:
+    """Estimated bytes per row of a schema (strings at a fixed 32)."""
+    total = 0
+    for f in schema:
+        total += f.dtype.np_dtype.itemsize if f.dtype.np_dtype is not None \
+            else 32
+    return max(total, 1)
+
+
+def _estimate_plan_rows(plan: L.LogicalPlan, conf: TpuConf
+                        ) -> Optional[int]:
+    """Rough output row count, an upper bound where it can be: row-local
+    nodes keep their child's (a filter too: guessing its selectivity
+    would under-estimate, the side that wrongly broadcasts)."""
+    if isinstance(plan, L.LogicalScan):
+        return plan.num_rows
+    if isinstance(plan, (L.LogicalProject, L.LogicalFilter, L.LogicalSort)):
+        return _estimate_plan_rows(plan.children[0], conf)
+    if isinstance(plan, L.LogicalLimit):
+        child = _estimate_plan_rows(plan.children[0], conf)
+        return plan.n if child is None else min(plan.n, child)
+    if isinstance(plan, L.LogicalAggregate):
+        if not plan.grouping:
+            return 1
+        return _estimate_plan_rows(plan.children[0], conf)
+    if isinstance(plan, L.LogicalJoin):
+        left = _estimate_plan_rows(plan.children[0], conf)
+        right = _estimate_plan_rows(plan.children[1], conf)
+        if left is None or right is None:
+            return None
+        if plan.join_type in ("left_semi", "left_anti"):
+            return left
+        # star-join heuristic: the fact side dominates the output
+        return max(left, right)
+    return None
+
+
+def _estimate_plan_bytes(plan: L.LogicalPlan, conf: TpuConf
+                         ) -> Optional[int]:
+    """Rough output bytes: a scan's table size, else estimated rows times
+    the output schema's width."""
+    if isinstance(plan, L.LogicalScan):
+        return plan.nbytes
+    rows = _estimate_plan_rows(plan, conf)
+    if rows is None:
+        return None
+    return rows * _schema_row_bytes(plan_schema(plan, conf))

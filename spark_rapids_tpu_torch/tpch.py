@@ -1,14 +1,22 @@
-"""TPC-H lineitem for the port: a vectorised generator of the columns that
-q1, q6 and q18 read, the three queries in the port's DataFrame API, and
-numpy oracles for them.
+"""TPC-H for the port: a vectorised generator of the columns that q1,
+q3, q4, q6 and q18 read (lineitem, orders and customer), the queries in
+the port's DataFrame API, and numpy oracles for them.
 
 The generator draws from the distributions of the JAX package's
-benchmarks/tpch/datagen.py (lineitem: 1-7 lines per order, ship date
-1-121 days after an order date in [1992-01-01, 1998-08-02 - 151 days),
-quantity 1-50, price = quantity * U(900, 1100) rounded to cents, discount
-U(0, 0.10) and tax U(0, 0.08) rounded to cents, return flag A/N/R, line
-status F/O), with numpy's own generator seeded by `seed`: the same shapes
-and distributions, not the same rows.  About 6,000,000 * sf rows.
+benchmarks/tpch/datagen.py, with numpy's own generator seeded by `seed`:
+the same shapes, key ranges and distributions, not the same rows.
+  * orders: ~1,500,000 * sf, o_orderkey 1..n, o_custkey uniform over the
+    customers, order date uniform in [1992-01-01, 1998-08-02 - 151 days),
+    priority uniform over PRIORITIES, ship priority 0, total price
+    U(900, 500000) rounded to cents;
+  * lineitem: 1-7 lines per order (~6,000,000 * sf rows), ship date 1-121
+    days after the order date, commit date 30-90 days after it, receipt
+    date 1-30 days after the ship date, quantity 1-50, price = quantity *
+    U(900, 1100) rounded to cents, discount U(0, 0.10) and tax U(0, 0.08)
+    rounded to cents, return flag A/N/R, line status F/O;
+  * customer: ~150,000 * sf, c_custkey 1..n, c_name "Customer#%09d",
+    market segment uniform over SEGMENTS.
+Strings come as numpy byte arrays, built without a per-row Python loop.
 """
 from __future__ import annotations
 
@@ -18,7 +26,7 @@ from typing import Dict, List
 
 import numpy as np
 
-from .plan.logical import col, functions as F, lit
+from .plan.logical import SortOrder, col, functions as F, lit
 from .types import (DateType, DoubleType, LongType, Schema, StringType,
                     StructField)
 
@@ -33,6 +41,8 @@ def days(s: str) -> int:
 
 START = days("1992-01-01")
 END = days("1998-08-02")
+SEGMENTS = ["AUTOMOBILE", "BUILDING", "FURNITURE", "MACHINERY", "HOUSEHOLD"]
+PRIORITIES = ["1-URGENT", "2-HIGH", "3-MEDIUM", "4-NOT SPECIFIED", "5-LOW"]
 
 LINEITEM = Schema([StructField("l_orderkey", LongType),
                    StructField("l_quantity", DoubleType),
@@ -41,17 +51,41 @@ LINEITEM = Schema([StructField("l_orderkey", LongType),
                    StructField("l_tax", DoubleType),
                    StructField("l_returnflag", StringType),
                    StructField("l_linestatus", StringType),
-                   StructField("l_shipdate", DateType)])
+                   StructField("l_shipdate", DateType),
+                   StructField("l_commitdate", DateType),
+                   StructField("l_receiptdate", DateType)])
+ORDERS = Schema([StructField("o_orderkey", LongType),
+                 StructField("o_custkey", LongType),
+                 StructField("o_totalprice", DoubleType),
+                 StructField("o_orderdate", DateType),
+                 StructField("o_orderpriority", StringType),
+                 StructField("o_shippriority", LongType)])
+CUSTOMER = Schema([StructField("c_custkey", LongType),
+                   StructField("c_name", StringType),
+                   StructField("c_mktsegment", StringType)])
+SCHEMAS = {"lineitem": LINEITEM, "orders": ORDERS, "customer": CUSTOMER}
 
 
-def generate_lineitem(sf: float, seed: int = 42) -> Dict[str, np.ndarray]:
+def _numbered(prefix: str, keys: np.ndarray, width: int) -> np.ndarray:
+    """`prefix` + each key zero-padded to `width` digits, as a byte array
+    built from a digit matrix."""
+    digits = (keys[:, None] // 10 ** np.arange(width - 1, -1, -1)) % 10
+    pre = np.frombuffer(prefix.encode(), dtype=np.uint8)
+    mat = np.concatenate([np.broadcast_to(pre, (len(keys), len(pre))),
+                          (digits + ord("0")).astype(np.uint8)], axis=1)
+    return np.ascontiguousarray(mat).view(f"S{mat.shape[1]}").reshape(-1)
+
+
+def generate(sf: float, seed: int = 42) -> Dict[str, Dict[str, np.ndarray]]:
+    """{table: {column: numpy array}} for lineitem, orders and customer."""
     rng = np.random.default_rng(seed)
     n_ord = max(100, int(1_500_000 * sf))
     o_date = rng.integers(START, END - 151, n_ord, dtype=np.int32)
     nl_per = rng.integers(1, 8, n_ord, dtype=np.int64)
     n = int(nl_per.sum())
     qty = rng.integers(1, 51, n).astype(np.float64)
-    return {
+    l_odate = np.repeat(o_date, nl_per)
+    lineitem = {
         "l_orderkey": np.repeat(np.arange(1, n_ord + 1, dtype=np.int64),
                                 nl_per),
         "l_quantity": qty,
@@ -62,9 +96,38 @@ def generate_lineitem(sf: float, seed: int = 42) -> Dict[str, np.ndarray]:
             rng.integers(0, 3, n, dtype=np.int8)],
         "l_linestatus": np.array([b"F", b"O"])[
             rng.integers(0, 2, n, dtype=np.int8)],
-        "l_shipdate": (np.repeat(o_date, nl_per)
-                       + rng.integers(1, 122, n, dtype=np.int32)),
+        "l_shipdate": l_odate + rng.integers(1, 122, n, dtype=np.int32),
     }
+    # the columns added after the first slice draw from a second stream,
+    # so the ones above keep their values
+    rng2 = np.random.default_rng([seed, 1])
+    lineitem["l_commitdate"] = l_odate + rng2.integers(30, 91, n,
+                                                       dtype=np.int32)
+    lineitem["l_receiptdate"] = (lineitem["l_shipdate"]
+                                 + rng2.integers(1, 31, n, dtype=np.int32))
+    n_cust = max(30, int(150_000 * sf))
+    c_keys = np.arange(1, n_cust + 1, dtype=np.int64)
+    customer = {
+        "c_custkey": c_keys,
+        "c_name": _numbered("Customer#", c_keys, 9),
+        "c_mktsegment": np.array(SEGMENTS, dtype="S")[
+            rng2.integers(0, len(SEGMENTS), n_cust)],
+    }
+    orders = {
+        "o_orderkey": np.arange(1, n_ord + 1, dtype=np.int64),
+        "o_custkey": rng2.integers(1, n_cust + 1, n_ord, dtype=np.int64),
+        "o_totalprice": np.round(rng2.uniform(900, 500_000, n_ord), 2),
+        "o_orderdate": o_date,
+        "o_orderpriority": np.array(PRIORITIES, dtype="S")[
+            rng2.integers(0, len(PRIORITIES), n_ord)],
+        "o_shippriority": np.zeros(n_ord, dtype=np.int64),
+    }
+    return {"lineitem": lineitem, "orders": orders, "customer": customer}
+
+
+def generate_lineitem(sf: float, seed: int = 42) -> Dict[str, np.ndarray]:
+    """The lineitem table of generate(sf, seed) alone."""
+    return generate(sf, seed)["lineitem"]
 
 
 # --------------------------------------------------------------------------
@@ -105,7 +168,54 @@ def q18_inner(li, min_qty: float = 300):
             .order_by("l_orderkey"))
 
 
+def q3(t):
+    cust = t["customer"].filter(col("c_mktsegment") == "BUILDING")
+    orders = t["orders"].filter(col("o_orderdate") < "1995-03-15")
+    li = t["lineitem"].filter(col("l_shipdate") > "1995-03-15")
+    return (cust.join(orders, on=col("c_custkey") == col("o_custkey"))
+            .join(li, on=col("o_orderkey") == col("l_orderkey"))
+            .group_by(col("l_orderkey"), col("o_orderdate"),
+                      col("o_shippriority"))
+            .agg(F.sum(col("l_extendedprice")
+                       * (lit(1.0) - col("l_discount"))).alias("revenue"))
+            .order_by(SortOrder(col("revenue"), ascending=False),
+                      "o_orderdate")
+            .limit(10))
+
+
+def q4(t):
+    orders = t["orders"].filter(
+        (col("o_orderdate") >= "1993-07-01")
+        & (col("o_orderdate") < "1993-10-01"))
+    late = t["lineitem"].filter(col("l_commitdate") < col("l_receiptdate"))
+    return (orders.join(late, on=col("o_orderkey") == col("l_orderkey"),
+                        how="left_semi")
+            .group_by(col("o_orderpriority"))
+            .agg(F.count(lit(1)).alias("order_count"))
+            .order_by("o_orderpriority"))
+
+
+def q18(t, min_qty: float = 300):
+    """TPC-H q18: the 100 largest orders (by total price) whose lines sum
+    above `min_qty` (300 in TPC-H)."""
+    big = (t["lineitem"].group_by(col("l_orderkey"))
+           .agg(F.sum(col("l_quantity")).alias("sum_qty"))
+           .filter(col("sum_qty") > min_qty)
+           .select(col("l_orderkey").alias("big_key"), col("sum_qty")))
+    return (t["orders"]
+            .join(big, on=col("o_orderkey") == col("big_key"))
+            .join(t["customer"], on=col("o_custkey") == col("c_custkey"))
+            .select(col("c_name"), col("c_custkey"), col("o_orderkey"),
+                    col("o_orderdate"), col("o_totalprice"), col("sum_qty"))
+            .order_by(SortOrder(col("o_totalprice"), ascending=False),
+                      "o_orderdate")
+            .limit(100))
+
+
+# the lineitem-only queries take the lineitem DataFrame, the joins a dict
+# of DataFrames by table name
 QUERIES = {"q1": q1, "q6": q6, "q18_inner": q18_inner}
+JOIN_QUERIES = {"q3": q3, "q4": q4, "q18": q18}
 
 
 # --------------------------------------------------------------------------
@@ -152,7 +262,79 @@ def oracle_q18_inner(t: Dict[str, np.ndarray],
     return [(int(k), float(sums[k])) for k in keys]
 
 
-ORACLES = {"q1": oracle_q1, "q6": oracle_q6, "q18_inner": oracle_q18_inner}
+def _date(d) -> datetime.date:
+    return _EPOCH + datetime.timedelta(days=int(d))
+
+
+def _in_keys(keys: np.ndarray, probe: np.ndarray) -> np.ndarray:
+    """Per probe value, whether it is among `keys` (a join by
+    np.searchsorted)."""
+    u = np.unique(keys)
+    pos = np.clip(np.searchsorted(u, probe), 0, max(len(u) - 1, 0))
+    return (u[pos] == probe) if len(u) else np.zeros(len(probe), bool)
+
+
+def _row_of(keys: np.ndarray, probe: np.ndarray) -> np.ndarray:
+    """Per probe value, the index of the one row of unique `keys` that
+    holds it (the caller has checked it is there)."""
+    order = np.argsort(keys, kind="stable")
+    return order[np.searchsorted(keys[order], probe)]
+
+
+def oracle_q3(t) -> List[tuple]:
+    """Every (orderkey, orderdate, shippriority, revenue) group in q3's
+    order; q3 keeps the first 10 (compare with top_rows_match)."""
+    c, o, li = t["customer"], t["orders"], t["lineitem"]
+    cust = c["c_custkey"][_text(c["c_mktsegment"]) == "BUILDING"]
+    om = (o["o_orderdate"] < days("1995-03-15")) & _in_keys(cust,
+                                                            o["o_custkey"])
+    lm = (li["l_shipdate"] > days("1995-03-15")) \
+        & _in_keys(o["o_orderkey"][om], li["l_orderkey"])
+    keys, inv = np.unique(li["l_orderkey"][lm], return_inverse=True)
+    rev = np.bincount(inv, weights=li["l_extendedprice"][lm]
+                      * (1.0 - li["l_discount"][lm]), minlength=len(keys))
+    orow = _row_of(o["o_orderkey"], keys)
+    odate, ship = o["o_orderdate"][orow], o["o_shippriority"][orow]
+    order = np.lexsort((odate, -rev))
+    return [(int(keys[i]), _date(odate[i]), int(ship[i]), float(rev[i]))
+            for i in order]
+
+
+def oracle_q4(t) -> List[tuple]:
+    o, li = t["orders"], t["lineitem"]
+    om = ((o["o_orderdate"] >= days("1993-07-01"))
+          & (o["o_orderdate"] < days("1993-10-01")))
+    late = li["l_orderkey"][li["l_commitdate"] < li["l_receiptdate"]]
+    om &= _in_keys(late, o["o_orderkey"])
+    prio, cnt = np.unique(_text(o["o_orderpriority"][om]),
+                          return_counts=True)
+    return [(str(p), int(n)) for p, n in zip(prio, cnt)]
+
+
+def oracle_q18(t, min_qty: float = 300) -> List[tuple]:
+    """Every row of q18's join in q18's order; q18 keeps the first 100
+    (compare with top_rows_match)."""
+    c, o, li = t["customer"], t["orders"], t["lineitem"]
+    keys, inv = np.unique(li["l_orderkey"], return_inverse=True)
+    sums = np.bincount(inv, weights=li["l_quantity"])
+    big, sums = keys[sums > min_qty], sums[sums > min_qty]
+    om = _in_keys(big, o["o_orderkey"]) & _in_keys(c["c_custkey"],
+                                                   o["o_custkey"])
+    okey = o["o_orderkey"][om]
+    ocust, odate = o["o_custkey"][om], o["o_orderdate"][om]
+    price = o["o_totalprice"][om]
+    qty = sums[np.searchsorted(big, okey)]
+    name = _text(c["c_name"])[_row_of(c["c_custkey"], ocust)]
+    order = np.lexsort((odate, -price))
+    return [(str(name[i]), int(ocust[i]), int(okey[i]), _date(odate[i]),
+             float(price[i]), float(qty[i])) for i in order]
+
+
+ORACLES = {"q1": oracle_q1, "q6": oracle_q6, "q18_inner": oracle_q18_inner,
+           "q3": oracle_q3, "q4": oracle_q4, "q18": oracle_q18}
+# how many of the oracle's rows each top-N query keeps, and the column it
+# orders by first
+TOP_N = {"q3": (10, 3), "q18": (100, 4)}
 
 
 def rows_match(want: List[tuple], got: List[tuple],
@@ -170,4 +352,38 @@ def rows_match(want: List[tuple], got: List[tuple],
                     return False
             elif a != b:
                 return False
+    return True
+
+
+def top_rows_match(want_all: List[tuple], got: List[tuple], n: int,
+                   order_col: int, rel: float = 1e-9) -> bool:
+    """`got` is the first `n` rows of `want_all` (the oracle's rows in the
+    query's order), where rows whose `order_col` values tie within `rel`
+    may trade places, across the cut too: a float sum taken in another
+    order can move a near-tie.  Each got row must equal a distinct oracle
+    row under rows_match's rule, and the got order values must equal the
+    oracle's first n within `rel`, position by position."""
+    cut = min(n, len(want_all))
+    if len(got) != cut:
+        return False
+    if not cut:
+        return True
+
+    def ties(a, b):
+        return math.isclose(a[order_col], b[order_col], rel_tol=rel,
+                            abs_tol=rel)
+    # the candidates: the first n rows and those past the cut tying with
+    # the n-th
+    m = cut
+    while m < len(want_all) and ties(want_all[m], want_all[cut - 1]):
+        m += 1
+    used = set()
+    for i, g in enumerate(got):
+        if not ties(g, want_all[i]):
+            return False
+        j = next((j for j in range(m) if j not in used
+                  and rows_match([want_all[j]], [g], rel)), None)
+        if j is None or not ties(want_all[j], want_all[i]):
+            return False
+        used.add(j)
     return True

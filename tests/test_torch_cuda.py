@@ -379,3 +379,99 @@ def test_grouped_min_max_nulls_nan_on_card_match_cpu(dev):
     for w, g in zip(want, got):
         assert w[:5] == g[:5] and w[6] == g[6], (w, g)
         assert w[5] == g[5] or abs(w[5] - g[5]) <= 1e-12 * abs(w[5]), (w, g)
+
+
+_HASH_JOINS = {"spark.sql.autoBroadcastJoinThreshold": "-1",
+               "spark.rapids.sql.tpu.join.partitioned.enabled": "false"}
+
+
+@pytest.mark.parametrize("plan", ["default", "hash_joins"])
+def test_join_queries_on_card_match_cpu(dev, plan):
+    """q3, q4 and q18 (inner and semi joins, limits) on the card against
+    the same session on the CPU, streaming several probe batches."""
+    from spark_rapids_tpu_torch import TpuSession, tpch
+    t = tpch.generate(0.02)
+    conf = {"spark.rapids.sql.variableFloatAgg.enabled": "true",
+            "spark.rapids.sql.reader.batchSizeRows": "30000",
+            **(_HASH_JOINS if plan == "hash_joins" else {})}
+    out = {}
+    for device in ("cpu", dev):
+        s = TpuSession(conf, device=device)
+        d = {n: s.from_numpy(v, tpch.SCHEMAS[n]) for n, v in t.items()}
+        out[str(device)] = [tpch.q3(d).collect(), tpch.q4(d).collect(),
+                            tpch.q18(d, 250).collect()]
+    for want, got in zip(out["cpu"], out[str(dev)]):
+        assert len(got) > 0
+        assert tpch.rows_match(want, got)
+
+
+def test_join_semi_anti_and_limit_on_card_match_cpu(dev):
+    """String and double keys with nulls, NaN and -0.0, a residual
+    condition, and a limit over several batches, on the card and on the
+    CPU: the same rows in the same order."""
+    from spark_rapids_tpu_torch import TpuSession, col
+    n = 20_000
+
+    def table(seed, key):
+        r = np.random.default_rng(seed)
+        return {key: np.ma.masked_array(
+                    r.choice([0.0, -0.0, 1.5, np.nan, 2.0, 3.0], n),
+                    mask=r.random(n) < 0.05),
+                key + "s": np.array(["a", "bb", "", "ccc"])[
+                    r.integers(0, 4, n)],
+                key + "v": r.integers(0, 100, n)}
+    left, right = table(1, "k"), table(2, "j")
+    rows = {}
+    for device in ("cpu", dev):
+        s = TpuSession({"spark.sql.autoBroadcastJoinThreshold": "-1",
+                        "spark.rapids.sql.reader.batchSizeRows": "7000"},
+                       device=device)
+        lt, rt = s.from_numpy(left), s.from_numpy(right)
+        on = (col("k") == col("j")) & (col("ks") == col("js"))
+        cond = on & (col("kv") < col("jv"))
+        rows[str(device)] = [
+            lt.join(rt, on).limit(50_000).collect(),
+            lt.join(rt, cond, "left_semi").collect(),
+            lt.join(rt, cond, "left_anti").collect(),
+            lt.filter(col("kv") > 50).limit(9000).collect()]
+    for want, got in zip(rows["cpu"], rows[str(dev)]):
+        assert len(got) > 0
+        assert [tuple("NaN" if x != x else x for x in r) for r in want] == \
+            [tuple("NaN" if x != x else x for x in r) for r in got]
+
+
+@pytest.mark.parametrize("packed", ["true", "false"])
+def test_join_build_of_a_non_power_of_two_size(dev, packed):
+    """A build side of 3000 rows sits in a 4096-row batch: the packed
+    route sorts it with K3 over the hash's two passes at that capacity,
+    and the join counts both launches as its build's; with the packed
+    sort off it takes the stable argsort and launches no K3.  Either way
+    the rows equal the CPU's."""
+    from spark_rapids_tpu_torch import TpuSession, col
+    r = np.random.default_rng(5)
+    left = {"k": r.integers(0, 2000, 10_000), "a": r.random(10_000)}
+    right = {"j": r.integers(0, 2000, 3000), "b": r.integers(0, 9, 3000)}
+    rows = {}
+    for device in ("cpu", dev):
+        s = TpuSession({"spark.sql.autoBroadcastJoinThreshold": "-1",
+                        "spark.rapids.sql.tpu.sort.packed.enabled": packed},
+                       device=device)
+        K.reset_launches()
+        rows[str(device)] = s.from_numpy(left).join(
+            s.from_numpy(right), col("k") == col("j")).collect()
+    assert len(rows["cpu"]) > 1000
+    assert rows["cpu"] == rows[str(dev)]
+    from spark_rapids_tpu_torch.exec.join import TpuHashJoinExec
+    nodes, joins = [s.last_plan], []
+    while nodes:
+        n = nodes.pop()
+        nodes += n.children
+        joins += [n] if isinstance(n, TpuHashJoinExec) else []
+    (join,) = joins
+    if packed == "true":
+        assert {(4096, torch.int64, 12, 64),
+                (4096, torch.int64, 12, 24)} <= K.sort_words.shapes
+        assert join.build_sorts == 2
+    else:
+        assert K.sort_words.launches == 0
+        assert join.build_sorts == 0

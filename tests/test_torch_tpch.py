@@ -1,8 +1,10 @@
-"""TPC-H q1, q6 and q18's inner lineitem aggregate through the JAX
-package's TpuSession and the port's, on the same SF0.01 lineitem
-(benchmarks/tpch/datagen.py), compared row for row under the rule of
-tests/compare.py.  Both sessions allow float aggregation on the device,
-so the JAX side runs its device aggregate rather than its CPU executor.
+"""TPC-H q1, q6 and q18's inner lineitem aggregate, and q3, q4 and q18
+whole, through the JAX package's TpuSession and the port's, on the same
+SF0.01 tables (benchmarks/tpch/datagen.py), compared row for row under
+the rule of tests/compare.py; for the joins also the join execs of the
+two physical plans.  Both sessions allow float aggregation on the
+device, so the JAX side runs its device aggregate rather than its CPU
+executor.
 
 At SF0.01 q18's aggregate has ~15,000 order keys, far above the 1024
 buckets: each package's bucket check comes back dirty and the update
@@ -16,9 +18,13 @@ import pytest
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 from benchmarks.tpch import QUERIES, generate, load_tables  # noqa: E402
+from benchmarks.tpch.schema import SCHEMAS as JAX_SCHEMAS  # noqa: E402
 from compare import assert_rows_equal  # noqa: E402
+from test_torch_join import _jax_rows as jax_table_rows  # noqa: E402
+from test_torch_join import join_nodes  # noqa: E402
 from spark_rapids_tpu.engine import TpuSession as JaxSession  # noqa: E402
 from spark_rapids_tpu.exec import aggregate as JA  # noqa: E402
+from spark_rapids_tpu.plan.logical import SortOrder as JSortOrder  # noqa: E402,E501
 from spark_rapids_tpu.plan.logical import col as jcol  # noqa: E402
 from spark_rapids_tpu.plan.logical import functions as JF  # noqa: E402
 from spark_rapids_tpu_torch import TpuSession, tpch  # noqa: E402
@@ -26,12 +32,21 @@ from spark_rapids_tpu_torch import col as pcol  # noqa: E402
 from spark_rapids_tpu_torch import functions as PF  # noqa: E402
 from spark_rapids_tpu_torch.exec.aggregate import (  # noqa: E402
     TpuHashAggregateExec)
+from spark_rapids_tpu_torch.types import Schema, StructField  # noqa: E402
+from spark_rapids_tpu_torch.types import (  # noqa: E402
+    DateType, DoubleType, LongType, StringType)
 
 SF = 0.01
 CONF = {"spark.rapids.sql.variableFloatAgg.enabled": "true"}
 # 300 is TPC-H's; at SF0.01 no order passes it, so a lower threshold
 # keeps the comparison non-empty
 Q18_MIN_QTY = (300, 250)
+# the joins' second plan: no broadcast, and no partitioned join (the
+# port has no exchange), so the plain hash join and the swap route run
+HASH_JOINS = {"spark.sql.autoBroadcastJoinThreshold": "-1",
+              "spark.rapids.sql.tpu.join.partitioned.enabled": "false"}
+_PORT_TYPE = {t.name: t for t in (DateType, DoubleType, LongType,
+                                  StringType)}
 
 
 @pytest.fixture(scope="module")
@@ -172,3 +187,102 @@ def test_port_queries_match_numpy_oracle_over_several_batches():
                 else tpch.ORACLES[name](t))
         assert len(got) > 0, name
         assert tpch.rows_match(want, got), name
+
+
+# --------------------------------------------------------------------------
+# q3, q4 and q18 whole
+# --------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def join_tables():
+    """customer, orders and lineitem at SF0.01 with every column the JAX
+    package loads (the planner's size estimates read whole tables), and
+    the port's schemas for them."""
+    data = generate(SF)
+    out = {}
+    for name in ("customer", "orders", "lineitem"):
+        schema = Schema([StructField(f.name, _PORT_TYPE[f.dtype.name])
+                         for f in JAX_SCHEMAS[name]])
+        out[name] = (data[name], schema)
+    return out
+
+
+def _jax_q18(t, min_qty):
+    """benchmarks/tpch/queries.py q18 with its quantity threshold as an
+    argument."""
+    big = (t["lineitem"].group_by(jcol("l_orderkey"))
+           .agg(JF.sum(jcol("l_quantity")).alias("sum_qty"))
+           .filter(jcol("sum_qty") > min_qty)
+           .select(jcol("l_orderkey").alias("big_key"), jcol("sum_qty")))
+    return (t["orders"]
+            .join(big, on=jcol("o_orderkey") == jcol("big_key"))
+            .join(t["customer"], on=jcol("o_custkey") == jcol("c_custkey"))
+            .select(jcol("c_name"), jcol("c_custkey"), jcol("o_orderkey"),
+                    jcol("o_orderdate"), jcol("o_totalprice"),
+                    jcol("sum_qty"))
+            .order_by(JSortOrder(jcol("o_totalprice"), ascending=False),
+                      "o_orderdate")
+            .limit(100))
+
+
+_JOIN_CASES = [("q3", None), ("q4", None)] + [("q18", q) for q in
+                                              Q18_MIN_QTY]
+
+
+@pytest.mark.parametrize("plan", ["default", "hash_joins"])
+@pytest.mark.parametrize("name,min_qty", _JOIN_CASES,
+                         ids=[f"{n}-{q}" if q else n for n, q in _JOIN_CASES])
+def test_join_queries_rows_and_plans_equal(join_tables, name, min_qty,
+                                           plan):
+    conf = dict(CONF, **(HASH_JOINS if plan == "hash_joins" else {}))
+    js = JaxSession(dict(conf))
+    jt = load_tables(js, sf=SF)
+    jdf = (_jax_q18(jt, min_qty) if name == "q18"
+           else QUERIES[int(name[1:])](jt))
+    ps = TpuSession(dict(conf), device="cpu")
+    pt = {n: ps.from_numpy(d, sch) for n, (d, sch) in join_tables.items()}
+    pdf = tpch.q18(pt, min_qty) if name == "q18" \
+        else tpch.JOIN_QUERIES[name](pt)
+    want, got = jax_table_rows(jdf), pdf.collect()
+    assert_rows_equal(want, got, ignore_order=False)
+    assert len(got) == {"q3": 10, "q4": 5}.get(name, len(got)) and got
+    jn, pn = join_nodes(jdf.physical_plan()), join_nodes(pdf.physical_plan())
+    assert len(pn) == (1 if name == "q4" else 2) and jn == pn, (jn, pn)
+    want_class = ("TpuHashJoinExec" if plan == "hash_joins"
+                  else "TpuBroadcastHashJoinExec")
+    assert {n[0] for n in pn} == {want_class}
+
+
+def test_to_pydict_raises_on_a_repeated_column_name():
+    s = TpuSession(dict(CONF), device="cpu")
+    df = s.from_numpy({"k": np.array([1, 1, 2]), "v": np.array([1., 2, 3]),
+                       "w": np.array([10., 20, 30])})
+    agg = df.group_by("k").agg(PF.sum(pcol("v")), PF.sum(pcol("w")))
+    assert sorted(agg.collect()) == [(1, 3.0, 30.0), (2, 3.0, 30.0)]
+    with pytest.raises(ValueError, match="'sum' is repeated"):
+        agg.to_pydict()
+    out = df.group_by("k").agg(PF.sum(pcol("v")).alias("sv"),
+                               PF.sum(pcol("w")).alias("sw")).to_pydict()
+    assert sorted(out) == ["k", "sv", "sw"]
+
+
+@pytest.mark.parametrize("name", ["q3", "q4", "q18"])
+def test_join_queries_match_numpy_oracle(name):
+    """The port's own generator and oracles (what chip_smoke.py runs at
+    SF10), in both join plans, with small reader batches so the probe
+    streams several batches."""
+    t = tpch.generate(SF)
+    for plan in ({}, HASH_JOINS):
+        s = TpuSession(dict(CONF, **plan, **{
+            "spark.rapids.sql.reader.batchSizeRows": "20000"}), device="cpu")
+        d = {n: s.from_numpy(v, tpch.SCHEMAS[n]) for n, v in t.items()}
+        if name == "q18":
+            got, want = tpch.q18(d, 250).collect(), tpch.oracle_q18(t, 250)
+        else:
+            got, want = tpch.JOIN_QUERIES[name](d).collect(), \
+                tpch.ORACLES[name](t)
+        assert got, name
+        if name in tpch.TOP_N:
+            assert tpch.top_rows_match(want, got, *tpch.TOP_N[name]), name
+        else:
+            assert tpch.rows_match(want, got), name
