@@ -21,8 +21,9 @@ Phases, each printing a line:
      beside its bound;
   3. queries: TPC-H lineitem (60 M rows, one 2^26-row batch), orders
      (15 M) and customer (1.5 M) at SF10, generated on the host from seed
-     42; q1, q6 and q18's inner lineitem aggregate, then q3, q4 and q18
-     whole (inner and semi equi-joins, limits), through
+     42; q1, q6 and q18's inner lineitem aggregate, then q3, q4, q12 and
+     q18 whole (inner and semi equi-joins, limits; q12's In and CaseWhen
+     over string columns), through
      TpuSession(device="cuda"), each compared with a numpy oracle.  The
      session sets spark.rapids.sql.tpu.join.partitioned.enabled=false: at
      SF10 the JAX package's rules partition every one of these joins
@@ -282,7 +283,7 @@ def _matches(name: str, want: list, got: list) -> bool:
 
 
 def run_queries(tables: dict, device: str = "cuda") -> tuple:
-    """The six queries on the card against the numpy oracles; returns the
+    """The queries on the card against the numpy oracles; returns the
     kernel launch counts of their first runs and the shapes each kernel
     was launched at there."""
     t0 = time.perf_counter()
@@ -333,6 +334,8 @@ def run_queries(tables: dict, device: str = "cuda") -> tuple:
             raise AssertionError(f"{name} disagrees with the numpy oracle "
                                  f"or is empty: {got[:3]} vs {want[:3]}")
         unsorted = [j for j in joins if not j["build_k3_launches"]]
+        if name in tpch.JOIN_QUERIES and not joins:
+            raise AssertionError(f"{name} planned no hash join: {joins}")
         if unsorted:
             raise AssertionError(f"{name}: hash-join builds that launched "
                                  f"no K3: {unsorted}")

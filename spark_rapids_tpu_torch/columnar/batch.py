@@ -8,6 +8,7 @@ need it (concat, sort, shrink).
 """
 from __future__ import annotations
 
+import datetime
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -216,10 +217,22 @@ def _host_values(values, dtype) -> Tuple[np.ndarray, Optional[np.ndarray]]:
         clean = np.array([0 if v is None else v for v in seq])
         if clean.dtype == object:  # datetime.date values
             clean = clean.astype("datetime64[D]")
+    elif dtype.name == "timestamp":
+        # datetime.datetime values: a naive one is UTC, an aware one is
+        # converted to UTC (as pyarrow reads them for the JAX package)
+        clean = np.array([0 if v is None else _naive_utc(v) for v in seq])
+        if clean.dtype == object:
+            clean = clean.astype("datetime64[us]")
     else:
         clean = np.array([0 if v is None else v for v in seq],
                          dtype=dtype.np_dtype)
     return clean, (None if valid.all() else valid)
+
+
+def _naive_utc(v):
+    if isinstance(v, datetime.datetime) and v.tzinfo is not None:
+        return v.astimezone(datetime.timezone.utc).replace(tzinfo=None)
+    return v
 
 
 def batch_from_numpy(columns: Sequence[Sequence[np.ndarray]],

@@ -182,6 +182,12 @@ class Column:
         if cur > max_len:
             raise ValueError(f"cannot shrink string column {cur} -> "
                              f"{max_len}")
+        if self.capacity and self.data.stride(0) == 0:
+            # a literal's one row broadcast to every row: pad the row
+            row = torch.zeros(max_len, dtype=torch.uint8, device=self.device)
+            row[:cur] = self.data[0]
+            return Column(row.expand(self.capacity, max_len), self.valid,
+                          self.dtype, self.lengths)
         pad = torch.zeros((self.capacity, max_len - cur), dtype=torch.uint8,
                           device=self.device)
         return Column(torch.cat([self.data, pad], dim=1), self.valid,

@@ -1,13 +1,22 @@
 """Bound expression trees evaluated a whole column at a time.
 
-The subset of spark_rapids_tpu/ops/expressions.py that TPC-H q1, q6 and
-the q18 lineitem aggregate use, with Spark's null semantics: a result is
-null when an input is null, except for Kleene And/Or.  Comparisons follow
-Spark's float order: -0.0 == 0.0, NaN == NaN, NaN greater than all.
+The subset of spark_rapids_tpu/ops/expressions.py that the port's TPC-H
+queries use, plus the null and NaN family and the conditionals, with
+Spark's null semantics: a result is null when an input is null, except
+for Kleene And/Or, the null predicates, the conditionals and Coalesce.
+Comparisons follow Spark's float order: -0.0 == 0.0, NaN == NaN, NaN
+greater than all.
+
+Each class computes what its JAX namesake computes, down to the value it
+leaves in a null slot (NaNvl, Coalesce and If read those), so one
+expression tree gives the same rows in both packages.  Where the JAX
+package raises when it evaluates a tree (a type it has no device layout
+for, an In item that numpy cannot cast to the column's type), the port
+raises when the tree is built, at planning time.
 """
 from __future__ import annotations
 
-from typing import Any, Optional, Sequence
+from typing import Any, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -15,6 +24,18 @@ import torch
 from ..columnar import Column, ColumnarBatch, bucket_strlen
 from ..types import (BooleanType, DataType, DoubleType, IntegerType,
                      LongType, NullType, StringType, promote)
+
+
+def _ones(cap: int, dev) -> torch.Tensor:
+    return torch.ones(cap, dtype=torch.bool, device=dev)
+
+
+def _string_row(raw: bytes, width: int, dev) -> torch.Tensor:
+    """One string's UTF-8 bytes as a zero-padded row of `width` bytes on
+    the device (the caller has checked that it fits)."""
+    row = torch.zeros(width, dtype=torch.uint8)
+    row[:len(raw)] = torch.tensor(list(raw), dtype=torch.uint8)
+    return row.to(dev)
 
 
 class Expression:
@@ -84,17 +105,14 @@ class Literal(Expression):
             # host array of the batch's capacity); read-only, like every
             # column
             raw = self.value.encode("utf-8")
-            row = torch.zeros(bucket_strlen(len(raw)), dtype=torch.uint8)
-            row[:len(raw)] = torch.tensor(list(raw), dtype=torch.uint8)
-            return Column(row.to(dev).expand(cap, row.numel()),
-                          torch.ones(cap, dtype=torch.bool, device=dev),
+            row = _string_row(raw, bucket_strlen(len(raw)), dev)
+            return Column(row.expand(cap, row.numel()), _ones(cap, dev),
                           StringType,
                           torch.full((cap,), len(raw), dtype=torch.int32,
                                      device=dev))
         data = torch.full((cap,), self.value, dtype=self._dtype.torch_dtype,
                           device=dev)
-        return Column(data, torch.ones(cap, dtype=torch.bool, device=dev),
-                      self._dtype)
+        return Column(data, _ones(cap, dev), self._dtype)
 
     def __repr__(self):
         return f"lit({self.value!r})"
@@ -143,6 +161,16 @@ class BinaryExpression(Expression):
         raise NotImplementedError
 
 
+class _Unary(Expression):
+    def __init__(self, child: Expression):
+        self.child = child
+        self.children = (child,)
+
+    @property
+    def dtype(self):
+        return self.child.dtype
+
+
 class Add(BinaryExpression):
     def do_op(self, l, r):
         return l + r
@@ -169,9 +197,26 @@ def _string_pair(l: Column, r: Column):
     return l.pad_strings_to(ml), r.pad_strings_to(ml)
 
 
+def _word_view(c: Column, width: int) -> torch.Tensor:
+    """A string column's bytes zero-padded to `width` (a multiple of 8) as
+    int64 words, [capacity, width / 8]; a literal's one broadcast row
+    stays one row."""
+    data = c.pad_strings_to(width).data
+    if data.stride(-1) != 1 or data.stride(0) % 8 \
+            or data.storage_offset() % 8:
+        data = data.contiguous()
+    return data.view(torch.int64)
+
+
 def string_eq(l: Column, r: Column):
-    a, b = _string_pair(l, r)
-    return torch.all(a.data == b.data, dim=1) & (a.lengths == b.lengths)
+    """Equal lengths and equal bytes, one elementwise compare per 8-byte
+    word rather than a reduction over bytes."""
+    width = -(-max(l.max_len, r.max_len) // 8) * 8
+    a, b = _word_view(l, width), _word_view(r, width)
+    eq = l.lengths == r.lengths
+    for k in range(a.shape[1]):
+        eq = eq & (a[:, k] == b[:, k])
+    return eq
 
 
 def string_lt(l: Column, r: Column):
@@ -224,12 +269,16 @@ def _lt(l, r):
     return l < r
 
 
+def _eq(l, r):
+    eq = l == r
+    if l.is_floating_point():
+        eq = eq | (torch.isnan(l) & torch.isnan(r))
+    return eq
+
+
 class EqualTo(_Comparison):
     def compare(self, l, r):
-        eq = l == r
-        if l.is_floating_point():
-            eq = eq | (torch.isnan(l) & torch.isnan(r))
-        return eq
+        return _eq(l, r)
 
     def compare_strings(self, l, r):
         return string_eq(l, r)
@@ -265,6 +314,21 @@ class GreaterThanOrEqual(_Comparison):
 
     def compare_strings(self, l, r):
         return ~string_lt(l, r)
+
+
+class EqualNullSafe(_Comparison):
+    """<=> : true when both sides are null or both equal; never null."""
+
+    def eval(self, batch):
+        l = self.left.eval(batch)
+        r = self.right.eval(batch)
+        if self.left.dtype.is_string:
+            eq = string_eq(l, r)
+        else:
+            t = self.promoted_type.torch_dtype
+            eq = _eq(*_cmp_prep(l.data.to(t), r.data.to(t)))
+        out = (l.valid & r.valid & eq) | (~l.valid & ~r.valid)
+        return Column(out, torch.ones_like(out), BooleanType)
 
 
 # --------------------------------------------------------------------------
@@ -309,11 +373,7 @@ class Or(Expression):
         return Column(true_l | true_r, valid, BooleanType)
 
 
-class Not(Expression):
-    def __init__(self, child):
-        self.child = child
-        self.children = (child,)
-
+class Not(_Unary):
     @property
     def dtype(self):
         return BooleanType
@@ -323,10 +383,355 @@ class Not(Expression):
         return Column(~c.data, c.valid, BooleanType)
 
 
-EXPRESSIONS = {c.__name__: c for c in (Add, Subtract, Multiply, EqualTo,
-                                       LessThan, GreaterThan,
-                                       LessThanOrEqual, GreaterThanOrEqual,
-                                       And, Or, Not)}
+# --------------------------------------------------------------------------
+# null and NaN handling
+# --------------------------------------------------------------------------
+
+class _Predicate(_Unary):
+    """A never-null boolean of one child."""
+
+    @property
+    def dtype(self):
+        return BooleanType
+
+    def eval(self, batch):
+        out = self.test(self.child.eval(batch))
+        return Column(out, _ones(batch.capacity, batch.device), BooleanType)
+
+    def test(self, c: Column) -> torch.Tensor:
+        raise NotImplementedError
+
+
+class IsNull(_Predicate):
+    def test(self, c):
+        return ~c.valid
+
+
+class IsNotNull(_Predicate):
+    def test(self, c):
+        return c.valid
+
+
+class IsNaN(_Predicate):
+    def __init__(self, child: Expression):
+        if child.dtype.is_string:
+            # the JAX package fails to broadcast the byte matrix
+            raise TypeError("IsNaN of a string column")
+        super().__init__(child)
+
+    def test(self, c):
+        return c.valid & torch.isnan(c.data)
+
+
+def _common_type(dtypes) -> DataType:
+    """Least common type of conditional branches: NullType skipped, the
+    rest promoted."""
+    out = None
+    for dt in dtypes:
+        if dt is NullType:
+            continue
+        out = dt if out is None or out is dt else promote(out, dt)
+    return out if out is not None else NullType
+
+
+def _check_branches(dt: DataType, branches) -> None:
+    """Raise for a result type the JAX package cannot evaluate: null
+    (no device layout), or string with a branch that is not a string
+    (its null literal is a long column, which cannot be padded)."""
+    if dt is NullType:
+        raise TypeError("null has no single-buffer device dtype")
+    if dt.is_string and any(not b.dtype.is_string for b in branches):
+        raise TypeError("a string result with a null-literal branch: the "
+                        "literal is a long column, not a string one")
+
+
+class Coalesce(Expression):
+    def __init__(self, *children: Expression):
+        self.children = tuple(children)
+        _check_branches(self.dtype, self.children)
+
+    @property
+    def dtype(self):
+        return _common_type(c.dtype for c in self.children)
+
+    def eval(self, batch):
+        dt = self.dtype
+        cols = [c.eval(batch) for c in self.children]
+        if not dt.is_string:
+            cols = [Column(c.data.to(dt.torch_dtype), c.valid, dt)
+                    for c in cols]
+        out = cols[0]
+        for nxt in cols[1:]:
+            if dt.is_string:
+                o, n = _string_pair(out, nxt)
+                out = Column(torch.where(o.valid[:, None], o.data, n.data),
+                             o.valid | n.valid, dt,
+                             torch.where(o.valid, o.lengths, n.lengths))
+            else:
+                out = Column(torch.where(out.valid, out.data, nxt.data),
+                             out.valid | nxt.valid, dt)
+        return out
+
+
+class NaNvl(BinaryExpression):
+    """The left value unless it is NaN, else the right one.  It reads
+    isnan of the left data on every row, null rows too.
+
+    The JAX package computes in the left side's type and declares the
+    promoted one (a float left with a double right gives a double column
+    of float-rounded values); the port computes the same values and
+    widens them to the declared type."""
+
+    def __init__(self, left: Expression, right: Expression):
+        super().__init__(left, right)
+        if self.dtype.is_string:
+            raise TypeError("NaNvl of string columns")
+
+    def eval(self, batch):
+        l = self.left.eval(batch)
+        r = self.right.eval(batch)
+        use_r = torch.isnan(l.data)
+        data = torch.where(use_r, r.data.to(l.data.dtype), l.data)
+        valid = torch.where(use_r, r.valid, l.valid)
+        return Column(data.to(self.dtype.torch_dtype), valid,
+                      self.dtype).mask_invalid()
+
+
+class AtLeastNNonNulls(Expression):
+    """True where at least n children are non-null, a float child
+    counting only when it is also not NaN (df.na.drop's predicate)."""
+
+    def __init__(self, n: int, children: Sequence[Expression]):
+        self.n = int(n)
+        self.children = tuple(children)
+
+    @property
+    def dtype(self):
+        return BooleanType
+
+    def eval(self, batch):
+        cap, dev = batch.capacity, batch.device
+        count = torch.zeros(cap, dtype=torch.int32, device=dev)
+        for ch in self.children:
+            c = ch.eval(batch)
+            ok = c.valid
+            if c.dtype.is_floating:
+                ok = ok & ~torch.isnan(c.data)
+            count = count + ok.to(torch.int32)
+        return Column(count >= self.n, _ones(cap, dev), BooleanType)
+
+    def __repr__(self):
+        return f"AtLeastNNonNulls({self.n}, {list(self.children)!r})"
+
+
+class NormalizeNaNAndZero(_Unary):
+    """Floats made canonical for grouping and join keys: every NaN
+    becomes one NaN and -0.0 becomes 0.0.  Other types pass through."""
+
+    def eval(self, batch):
+        c = self.child.eval(batch)
+        if not c.dtype.is_floating:
+            return c
+        x = c.data
+        nan = torch.full((), float("nan"), dtype=x.dtype, device=x.device)
+        zero = torch.zeros((), dtype=x.dtype, device=x.device)
+        data = torch.where(torch.isnan(x), nan,
+                           torch.where(x == 0, zero, x))
+        return Column(data, c.valid, c.dtype)
+
+
+class KnownFloatingPointNormalized(_Unary):
+    """A marker that its child is already normalized: a passthrough."""
+
+    def eval(self, batch):
+        return self.child.eval(batch)
+
+
+# --------------------------------------------------------------------------
+# conditionals
+# --------------------------------------------------------------------------
+
+class If(Expression):
+    """`then` where the predicate is true, else `other`; a null
+    predicate counts as false, and the validity is the taken branch's."""
+
+    def __init__(self, pred: Expression, then: Expression,
+                 other: Expression):
+        if pred.dtype.is_string:
+            raise TypeError("a string predicate")
+        self.pred, self.then, self.other = pred, then, other
+        self.children = (pred, then, other)
+        _check_branches(self.dtype, (then, other))
+
+    @property
+    def dtype(self):
+        return _common_type((self.then.dtype, self.other.dtype))
+
+    def eval(self, batch):
+        p = self.pred.eval(batch)
+        t = self.then.eval(batch)
+        o = self.other.eval(batch)
+        # the JAX package's logical_and: any non-zero predicate is true
+        cond = p.valid & p.data.to(torch.bool)
+        valid = torch.where(cond, t.valid, o.valid)
+        dt = self.dtype
+        if dt.is_string:
+            t, o = _string_pair(t, o)
+            return Column(torch.where(cond[:, None], t.data, o.data), valid,
+                          dt, torch.where(cond, t.lengths, o.lengths))
+        tt = dt.torch_dtype
+        return Column(torch.where(cond, t.data.to(tt), o.data.to(tt)),
+                      valid, dt)
+
+
+class CaseWhen(Expression):
+    """branches [(pred, value), ...] and an optional else value, run as
+    nested Ifs from the last branch, so the first true branch wins; with
+    no else value the result is a null of the common type."""
+
+    def __init__(self, branches, else_value: Optional[Expression] = None):
+        self.branches = list(branches)
+        self.else_value = else_value
+        ch: List[Expression] = []
+        for p, v in self.branches:
+            ch += [p, v]
+        if else_value is not None:
+            ch.append(else_value)
+        self.children = tuple(ch)
+        expr = else_value if else_value is not None \
+            else Literal(None, self.dtype)
+        for p, v in reversed(self.branches):
+            expr = If(p, v, expr)
+        self._tree = expr
+
+    @property
+    def dtype(self):
+        dts = [v.dtype for _, v in self.branches]
+        if self.else_value is not None:
+            dts.append(self.else_value.dtype)
+        return _common_type(dts)
+
+    def eval(self, batch):
+        return self._tree.eval(batch)
+
+
+class In(Expression):
+    """value IN (items): null where the value is null, and where no item
+    matched and the list holds a None.  A string item matches by bytes
+    and length.  Numeric items are first cast to the column's numpy type
+    (as the JAX package does: an int column matches 1.5 as 1); NaN
+    matches nothing."""
+
+    def __init__(self, value: Expression, items: Sequence[Any]):
+        self.value = value
+        self.items = list(items)
+        self.children = (value,)
+        non_null = [i for i in self.items if i is not None]
+        self.has_null_item = len(non_null) != len(self.items)
+        if value.dtype.is_string:
+            bad = [i for i in non_null if not isinstance(i, str)]
+            if bad:
+                raise TypeError(f"In over a string column with non-string "
+                                f"items {bad!r}")
+            self._strings = non_null
+        else:
+            # the cast the JAX package makes when it evaluates, made here
+            # so that an item numpy cannot cast raises at planning time
+            vt = LongType if value.dtype is NullType else value.dtype
+            self._numbers = np.array(non_null, dtype=vt.np_dtype)
+
+    @property
+    def dtype(self):
+        return BooleanType
+
+    def eval(self, batch):
+        v = self.value.eval(batch)
+        dev = batch.device
+        hit = torch.zeros(batch.capacity, dtype=torch.bool, device=dev)
+        if v.dtype.is_string:
+            # each item a literal: one row on the device, broadcast to
+            # every row
+            for item in self._strings:
+                if len(item.encode("utf-8")) > v.max_len:
+                    continue  # longer than every value
+                hit = hit | string_eq(v, Literal(item, StringType).eval(batch))
+        elif len(self._numbers):
+            items = torch.from_numpy(self._numbers).to(dev)
+            hit = torch.any(v.data[:, None] == items[None, :], dim=1)
+        valid = v.valid & hit if self.has_null_item else v.valid
+        return Column(hit, valid, BooleanType)
+
+    def __repr__(self):
+        return f"In({self.value!r}, {self.items!r})"
+
+
+InSet = In
+
+
+class _ExtremeN(Expression):
+    """least/greatest(e1, ..., en): nulls skipped (null only where every
+    argument is), NaN greater than any number."""
+
+    def __init__(self, *children: Expression):
+        if len(children) < 2:
+            raise TypeError(f"{type(self).__name__} needs at least two "
+                            "arguments")
+        self.children = tuple(children)
+        dt = self.dtype
+        if dt is NullType or dt.is_string:
+            raise TypeError(f"{dt.name} has no single-buffer device dtype")
+
+    @property
+    def dtype(self):
+        return _common_type(c.dtype for c in self.children)
+
+    def eval(self, batch):
+        dt = self.dtype
+        t = dt.torch_dtype
+        cols = [c.eval(batch) for c in self.children]
+        acc_v, acc_m = cols[0].data.to(t), cols[0].valid
+        for c in cols[1:]:
+            v, m = c.data.to(t), c.valid
+            take = m & (~acc_m | self._better(v, acc_v))
+            acc_v = torch.where(take, v, acc_v)
+            acc_m = acc_m | m
+        return Column(acc_v, acc_m, dt).mask_invalid()
+
+    @staticmethod
+    def _key(x):
+        """(comparison key, NaN mask or None): NaN sorts greatest."""
+        if x.is_floating_point():
+            nan = torch.isnan(x)
+            return torch.where(nan, float("inf"), x), nan
+        return x, None
+
+    def _better(self, v, acc):
+        raise NotImplementedError
+
+
+class Least(_ExtremeN):
+    def _better(self, v, acc):
+        vk, vn = self._key(v)
+        ak, an = self._key(acc)
+        lt = vk < ak
+        return lt if vn is None else lt | (~vn & an)
+
+
+class Greatest(_ExtremeN):
+    def _better(self, v, acc):
+        vk, vn = self._key(v)
+        ak, an = self._key(acc)
+        gt = vk > ak
+        return gt if vn is None else gt | (vn & ~an)
+
+
+# the ops `resolve` builds from their resolved arguments alone (In,
+# CaseWhen, AtLeastNNonNulls, Least and Greatest take their own branches)
+EXPRESSIONS = {c.__name__: c for c in (
+    Add, Subtract, Multiply, EqualTo, LessThan, GreaterThan,
+    LessThanOrEqual, GreaterThanOrEqual, EqualNullSafe, And, Or, Not,
+    IsNull, IsNotNull, IsNaN, Coalesce, NaNvl, NormalizeNaNAndZero,
+    KnownFloatingPointNormalized)}
 COMPARISONS = ("EqualTo", "LessThan", "GreaterThan", "LessThanOrEqual",
-               "GreaterThanOrEqual")
+               "GreaterThanOrEqual", "EqualNullSafe")
 ARITHMETIC = ("Add", "Subtract", "Multiply")

@@ -93,6 +93,18 @@ def resolve(ce, schema: Schema) -> E.Expression:
         if not (child_ce.op == "lit" and child_ce.args[0] in (1, "*")):
             child = resolve(child_ce, schema)
         return AggregateExpression(op, child, output_name=ce.output_name)
+    if op == "In":
+        return E.In(resolve(ce.args[0], schema), list(ce.args[1]))
+    if op == "CaseWhen":
+        branches, otherwise = ce.args
+        return E.CaseWhen(
+            [(resolve(p, schema), resolve(v, schema)) for p, v in branches],
+            resolve(otherwise, schema) if otherwise is not None else None)
+    if op == "AtLeastNNonNulls":
+        n, child_ces = ce.args
+        return E.AtLeastNNonNulls(n, [resolve(a, schema) for a in child_ces])
+    if op in ("Least", "Greatest"):
+        return getattr(E, op)(*[resolve(a, schema) for a in ce.args])
     if op in E.EXPRESSIONS:
         args = [resolve(a, schema) for a in ce.args]
         if len(args) == 2 and (op in E.COMPARISONS or op in E.ARITHMETIC):

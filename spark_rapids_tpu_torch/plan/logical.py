@@ -1,8 +1,11 @@
 """Logical plan and the unresolved column DSL (port of the slice's part of
 spark_rapids_tpu/plan/logical.py): `col`, `lit`, the arithmetic,
-comparison and boolean operators, `between`, the aggregate functions sum,
-avg, count, min and max, `SortOrder`, and the scan, filter, project,
-aggregate, join, sort and limit nodes.
+comparison and boolean operators, `between`, `isin`, `is_null` and
+`is_not_null`, the aggregate functions sum, avg, count, min and max,
+`when`/`otherwise`, `coalesce`, `isnan`, `least` and `greatest`,
+`SortOrder`, and the scan, filter, project, aggregate, join, sort and
+limit nodes.  Op names and argument layouts are the JAX package's, so one
+ColumnExpr tree means the same to both.
 """
 from __future__ import annotations
 
@@ -78,6 +81,18 @@ class ColumnExpr:
     def between(self, lo, hi) -> "ColumnExpr":
         return (self >= lo) & (self <= hi)
 
+    def isin(self, *items) -> "ColumnExpr":
+        vals = items[0] if len(items) == 1 and isinstance(items[0],
+                                                          (list, tuple)) \
+            else items
+        return ColumnExpr("In", (self, list(vals)))
+
+    def is_null(self) -> "ColumnExpr":
+        return ColumnExpr("IsNull", (self,))
+
+    def is_not_null(self) -> "ColumnExpr":
+        return ColumnExpr("IsNotNull", (self,))
+
     @property
     def output_name(self) -> str:
         if self._alias:
@@ -119,7 +134,7 @@ class SortOrder:
 
 
 class functions:
-    """The aggregate functions of spark.sql.functions the slice has."""
+    """The functions of spark.sql.functions the slice has."""
 
     col = staticmethod(col)
     lit = staticmethod(lit)
@@ -143,6 +158,40 @@ class functions:
     @staticmethod
     def count(e):
         return ColumnExpr("Count", (_wrap(e),))
+
+    @staticmethod
+    def when(cond, value):
+        return WhenBuilder([(cond, _wrap(value))])
+
+    @staticmethod
+    def coalesce(*exprs):
+        return ColumnExpr("Coalesce", tuple(_wrap(e) for e in exprs))
+
+    @staticmethod
+    def isnan(e):
+        return ColumnExpr("IsNaN", (_wrap(e),))
+
+    @staticmethod
+    def least(*exprs):
+        return ColumnExpr("Least", tuple(_wrap(e) for e in exprs))
+
+    @staticmethod
+    def greatest(*exprs):
+        return ColumnExpr("Greatest", tuple(_wrap(e) for e in exprs))
+
+
+class WhenBuilder(ColumnExpr):
+    """`when(c, v).when(c2, v2).otherwise(v3)`: a CaseWhen whose args are
+    (((cond, value), ...), otherwise or None)."""
+
+    def __init__(self, branches, otherwise=None):
+        super().__init__("CaseWhen", (tuple(branches), otherwise))
+
+    def when(self, cond, value):
+        return WhenBuilder(self.args[0] + ((cond, _wrap(value)),))
+
+    def otherwise(self, value):
+        return WhenBuilder(self.args[0], _wrap(value))
 
 
 # --------------------------------------------------------------------------

@@ -1,6 +1,6 @@
 """TPC-H for the port: a vectorised generator of the columns that q1,
-q3, q4, q6 and q18 read (lineitem, orders and customer), the queries in
-the port's DataFrame API, and numpy oracles for them.
+q3, q4, q6, q12 and q18 read (lineitem, orders and customer), the queries
+in the port's DataFrame API, and numpy oracles for them.
 
 The generator draws from the distributions of the JAX package's
 benchmarks/tpch/datagen.py, with numpy's own generator seeded by `seed`:
@@ -13,7 +13,8 @@ the same shapes, key ranges and distributions, not the same rows.
     days after the order date, commit date 30-90 days after it, receipt
     date 1-30 days after the ship date, quantity 1-50, price = quantity *
     U(900, 1100) rounded to cents, discount U(0, 0.10) and tax U(0, 0.08)
-    rounded to cents, return flag A/N/R, line status F/O;
+    rounded to cents, return flag A/N/R, line status F/O, ship mode
+    uniform over SHIPMODES;
   * customer: ~150,000 * sf, c_custkey 1..n, c_name "Customer#%09d",
     market segment uniform over SEGMENTS.
 Strings come as numpy byte arrays, built without a per-row Python loop.
@@ -43,6 +44,7 @@ START = days("1992-01-01")
 END = days("1998-08-02")
 SEGMENTS = ["AUTOMOBILE", "BUILDING", "FURNITURE", "MACHINERY", "HOUSEHOLD"]
 PRIORITIES = ["1-URGENT", "2-HIGH", "3-MEDIUM", "4-NOT SPECIFIED", "5-LOW"]
+SHIPMODES = ["REG AIR", "AIR", "RAIL", "SHIP", "TRUCK", "MAIL", "FOB"]
 
 LINEITEM = Schema([StructField("l_orderkey", LongType),
                    StructField("l_quantity", DoubleType),
@@ -53,7 +55,8 @@ LINEITEM = Schema([StructField("l_orderkey", LongType),
                    StructField("l_linestatus", StringType),
                    StructField("l_shipdate", DateType),
                    StructField("l_commitdate", DateType),
-                   StructField("l_receiptdate", DateType)])
+                   StructField("l_receiptdate", DateType),
+                   StructField("l_shipmode", StringType)])
 ORDERS = Schema([StructField("o_orderkey", LongType),
                  StructField("o_custkey", LongType),
                  StructField("o_totalprice", DoubleType),
@@ -105,6 +108,10 @@ def generate(sf: float, seed: int = 42) -> Dict[str, Dict[str, np.ndarray]]:
                                                        dtype=np.int32)
     lineitem["l_receiptdate"] = (lineitem["l_shipdate"]
                                  + rng2.integers(1, 31, n, dtype=np.int32))
+    # and the ship mode from a third, so the second's keep theirs
+    rng3 = np.random.default_rng([seed, 2])
+    lineitem["l_shipmode"] = np.array(SHIPMODES, dtype="S")[
+        rng3.integers(0, len(SHIPMODES), n)]
     n_cust = max(30, int(150_000 * sf))
     c_keys = np.arange(1, n_cust + 1, dtype=np.int64)
     customer = {
@@ -212,10 +219,30 @@ def q18(t, min_qty: float = 300):
             .limit(100))
 
 
+def q12(t):
+    """TPC-H q12: late lines shipped by mail or ship in 1994, counted by
+    ship mode and by whether their order's priority is high."""
+    li = t["lineitem"].filter(
+        col("l_shipmode").isin("MAIL", "SHIP")
+        & (col("l_commitdate") < col("l_receiptdate"))
+        & (col("l_shipdate") < col("l_commitdate"))
+        & (col("l_receiptdate") >= "1994-01-01")
+        & (col("l_receiptdate") < "1995-01-01"))
+    hi = F.when(col("o_orderpriority").isin("1-URGENT", "2-HIGH"),
+                1).otherwise(0)
+    lo = F.when(col("o_orderpriority").isin("1-URGENT", "2-HIGH"),
+                0).otherwise(1)
+    return (t["orders"].join(li, on=col("o_orderkey") == col("l_orderkey"))
+            .group_by(col("l_shipmode"))
+            .agg(F.sum(hi).alias("high_line_count"),
+                 F.sum(lo).alias("low_line_count"))
+            .order_by("l_shipmode"))
+
+
 # the lineitem-only queries take the lineitem DataFrame, the joins a dict
 # of DataFrames by table name
 QUERIES = {"q1": q1, "q6": q6, "q18_inner": q18_inner}
-JOIN_QUERIES = {"q3": q3, "q4": q4, "q18": q18}
+JOIN_QUERIES = {"q3": q3, "q4": q4, "q12": q12, "q18": q18}
 
 
 # --------------------------------------------------------------------------
@@ -330,8 +357,29 @@ def oracle_q18(t, min_qty: float = 300) -> List[tuple]:
              float(price[i]), float(qty[i])) for i in order]
 
 
+def oracle_q12(t) -> List[tuple]:
+    o, li = t["orders"], t["lineitem"]
+    ship, commit = li["l_shipdate"], li["l_commitdate"]
+    receipt = li["l_receiptdate"]
+    m = np.flatnonzero((commit < receipt) & (ship < commit)
+                       & (receipt >= days("1994-01-01"))
+                       & (receipt < days("1995-01-01")))
+    mode = _text(li["l_shipmode"][m])
+    keep = np.isin(mode, ["MAIL", "SHIP"]) \
+        & _in_keys(o["o_orderkey"], li["l_orderkey"][m])
+    mode, key = mode[keep], li["l_orderkey"][m][keep]
+    prio = _text(o["o_orderpriority"])[_row_of(o["o_orderkey"], key)]
+    high = np.isin(prio, ["1-URGENT", "2-HIGH"])
+    modes, inv = np.unique(mode, return_inverse=True)
+    n_high = np.bincount(inv, weights=high, minlength=len(modes))
+    n_all = np.bincount(inv, minlength=len(modes))
+    return [(str(k), int(h), int(n - h))
+            for k, h, n in zip(modes, n_high, n_all)]
+
+
 ORACLES = {"q1": oracle_q1, "q6": oracle_q6, "q18_inner": oracle_q18_inner,
-           "q3": oracle_q3, "q4": oracle_q4, "q18": oracle_q18}
+           "q3": oracle_q3, "q4": oracle_q4, "q12": oracle_q12,
+           "q18": oracle_q18}
 # how many of the oracle's rows each top-N query keeps, and the column it
 # orders by first
 TOP_N = {"q3": (10, 3), "q18": (100, 4)}

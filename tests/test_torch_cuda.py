@@ -1,5 +1,6 @@
-"""The port's CUDA kernels against their plain PyTorch versions, on the
-card.  Every test here needs an NVIDIA card (marker `cuda`) and skips
+"""The port's CUDA kernels against their plain PyTorch versions, and its
+queries and expressions against the same on the CPU, on the card.
+Every test here needs an NVIDIA card (marker `cuda`) and skips
 without one.  Run them on a machine with a card, where JAX is absent:
 
     python -m pytest --noconftest -q -m cuda tests/test_torch_cuda.py
@@ -11,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+import test_torch_expressions as X
 from spark_rapids_tpu_torch.ops import kernels as K
 
 pytestmark = pytest.mark.cuda
@@ -475,3 +477,40 @@ def test_join_build_of_a_non_power_of_two_size(dev, packed):
     else:
         assert K.sort_words.launches == 0
         assert join.build_sorts == 0
+
+
+@pytest.mark.parametrize("case", list(X.CASES))
+def test_null_and_conditional_expressions_on_card_match_cpu(dev, case):
+    """Each null, NaN and conditional expression of
+    tests/test_torch_expressions.py, on the same seeded table, on the
+    card and on the CPU: the same types, null masks and values (exact,
+    NaN equal to NaN)."""
+    from spark_rapids_tpu_torch import TpuSession
+    data = X.table()
+    out = {}
+    for device in ("cpu", dev):
+        df = X.port_df(TpuSession(device=device), data)
+        out[str(device)] = X.port_columns(X.query(df, X.PORT, case))
+    (want_types, want), (got_types, got) = out["cpu"], out[str(dev)]
+    assert got_types == want_types
+    assert len(got) == len(want) > 0
+    for k, ((wv, wok), (gv, gok)) in enumerate(zip(want, got)):
+        assert np.array_equal(wok, gok), k
+        assert X.same_values(wv, gv, wok), k
+
+
+@pytest.mark.parametrize("plan", ["default", "hash_joins"])
+def test_q12_on_card_matches_cpu(dev, plan):
+    """TPC-H q12 (In, CaseWhen, an inner join, a two-group aggregate) at
+    SF0.01 on the card and on the CPU, over several probe batches."""
+    from spark_rapids_tpu_torch import TpuSession, tpch
+    t = tpch.generate(0.01)
+    conf = {"spark.rapids.sql.reader.batchSizeRows": "20000",
+            **(_HASH_JOINS if plan == "hash_joins" else {})}
+    out = {}
+    for device in ("cpu", dev):
+        s = TpuSession(conf, device=device)
+        d = {n: s.from_numpy(v, tpch.SCHEMAS[n]) for n, v in t.items()}
+        out[str(device)] = tpch.q12(d).collect()
+    assert len(out["cpu"]) == 2
+    assert out["cpu"] == out[str(dev)] == tpch.oracle_q12(t)

@@ -1,5 +1,5 @@
-"""TPC-H q1, q6 and q18's inner lineitem aggregate, and q3, q4 and q18
-whole, through the JAX package's TpuSession and the port's, on the same
+"""TPC-H q1, q6 and q18's inner lineitem aggregate, and q3, q4, q12 and
+q18 whole, through the JAX package's TpuSession and the port's, on the same
 SF0.01 tables (benchmarks/tpch/datagen.py), compared row for row under
 the rule of tests/compare.py; for the joins also the join execs of the
 two physical plans.  Both sessions allow float aggregation on the
@@ -225,8 +225,8 @@ def _jax_q18(t, min_qty):
             .limit(100))
 
 
-_JOIN_CASES = [("q3", None), ("q4", None)] + [("q18", q) for q in
-                                              Q18_MIN_QTY]
+_JOIN_CASES = [("q3", None), ("q4", None), ("q12", None)] + [
+    ("q18", q) for q in Q18_MIN_QTY]
 
 
 @pytest.mark.parametrize("plan", ["default", "hash_joins"])
@@ -245,9 +245,11 @@ def test_join_queries_rows_and_plans_equal(join_tables, name, min_qty,
         else tpch.JOIN_QUERIES[name](pt)
     want, got = jax_table_rows(jdf), pdf.collect()
     assert_rows_equal(want, got, ignore_order=False)
-    assert len(got) == {"q3": 10, "q4": 5}.get(name, len(got)) and got
+    assert len(got) == {"q3": 10, "q4": 5, "q12": 2}.get(name, len(got)) \
+        and got
     jn, pn = join_nodes(jdf.physical_plan()), join_nodes(pdf.physical_plan())
-    assert len(pn) == (1 if name == "q4" else 2) and jn == pn, (jn, pn)
+    assert len(pn) == (1 if name in ("q4", "q12") else 2) and jn == pn, \
+        (jn, pn)
     want_class = ("TpuHashJoinExec" if plan == "hash_joins"
                   else "TpuBroadcastHashJoinExec")
     assert {n[0] for n in pn} == {want_class}
@@ -266,7 +268,7 @@ def test_to_pydict_raises_on_a_repeated_column_name():
     assert sorted(out) == ["k", "sv", "sw"]
 
 
-@pytest.mark.parametrize("name", ["q3", "q4", "q18"])
+@pytest.mark.parametrize("name", ["q3", "q4", "q12", "q18"])
 def test_join_queries_match_numpy_oracle(name):
     """The port's own generator and oracles (what chip_smoke.py runs at
     SF10), in both join plans, with small reader batches so the probe
