@@ -21,9 +21,11 @@ Phases, each printing a line:
      beside its bound;
   3. queries: TPC-H lineitem (60 M rows, one 2^26-row batch), orders
      (15 M) and customer (1.5 M) at SF10, generated on the host from seed
-     42; q1, q6 and q18's inner lineitem aggregate, then q3, q4, q12 and
-     q18 whole (inner and semi equi-joins, limits; q12's In and CaseWhen
-     over string columns), through
+     42; q1, q6 and q18's inner lineitem aggregate, then q3, q4, q12, q18
+     and q22 whole (inner, semi and anti equi-joins, limits; q12's In and
+     CaseWhen over string columns; q22's Substring of c_phone, a
+     collected average and a left_anti join building all 15 M orders),
+     through
      TpuSession(device="cuda"), each compared with a numpy oracle.  The
      session sets spark.rapids.sql.tpu.join.partitioned.enabled=false: at
      SF10 the JAX package's rules partition every one of these joins
@@ -38,7 +40,12 @@ Phases, each printing a line:
      kernels (K3 in every hash-join build, counted around the build
      itself, and K1, K2 and K3 in q18's aggregate), and every shape a
      kernel was launched at there that phase 2 did not cover is held
-     against the plain version too.
+     against the plain version too;
+  4. string filters: count(*) of the orders whose o_comment (2^24 rows of
+     up to 64 bytes) passes each of tpch.STRING_FILTERS (Contains, Like,
+     StartsWith, EndsWith, Substring), each against its numpy oracle,
+     with the kernel launches of its first run (counts set to 0 before
+     it), the warm median of 3, the busy share and the peak device bytes.
 The second-last line is the card as nvidia-smi names it; the last is
 {"ok": true, "device": {...}}.  Any failure raises: nothing is caught,
 and the script prints no result line without a CUDA device.
@@ -284,8 +291,8 @@ def _matches(name: str, want: list, got: list) -> bool:
 
 def run_queries(tables: dict, device: str = "cuda") -> tuple:
     """The queries on the card against the numpy oracles; returns the
-    kernel launch counts of their first runs and the shapes each kernel
-    was launched at there."""
+    kernel launch counts of the queries' first runs, the shapes each
+    kernel was launched at there, and the session's DataFrames."""
     t0 = time.perf_counter()
     s = TpuSession(dict(CONF), device=device)
     dfs = {n: s.from_numpy(t, tpch.SCHEMAS[n]) for n, t in tables.items()}
@@ -350,7 +357,37 @@ def run_queries(tables: dict, device: str = "cuda") -> tuple:
     if missing:
         raise AssertionError(f"kernels never launched by the queries: "
                              f"{missing}")
-    return launches, shapes
+    return launches, shapes, dfs
+
+
+def run_string_filters(orders_df, orders: dict) -> None:
+    """Each string filter over o_comment on the card against its numpy
+    oracle: its first run between a launch-count reset and a read, then
+    the warm median of REPS and one profiled run."""
+    for name in tpch.STRING_FILTERS:
+        def q(name=name):
+            return tpch.string_filter(orders_df, name)
+        K.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        got = q().collect()
+        ms = (time.perf_counter() - t0) * 1e3
+        launches = K.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        want = tpch.oracle_string_filter(orders, name)
+        warm = []
+        for _ in range(REPS):
+            t0 = time.perf_counter()
+            q().collect()
+            warm.append((time.perf_counter() - t0) * 1e3)
+        print("filter " + json.dumps({
+            "filter": name, "count": got, "oracle": want, "first_ms": ms,
+            "warm_ms": warm, "warm_median_ms": statistics.median(warm),
+            "launches": launches, "peak_device_bytes": peak,
+            "profile": profile_query(q)}), flush=True)
+        if got != want:
+            raise AssertionError(f"string filter {name}: {got} against the "
+                                 f"numpy oracle's {want}")
 
 
 def join_nodes(node, swapped: bool = False) -> list:
@@ -425,7 +462,9 @@ def main() -> int:
     checked = phase2_shapes(cap)
     check_kernels(gen, dev, checked, report)
     torch.cuda.empty_cache()
-    launches, shapes = run_queries(tables)
+    launches, shapes, dfs = run_queries(tables)
+    run_string_filters(dfs["orders"], tables["orders"])
+    del dfs
     torch.cuda.empty_cache()
     rest = [ks for ks in shapes if ks not in checked]
     print(f"kernels: {len(shapes) - len(rest)} of the query phase's "

@@ -29,8 +29,8 @@ from .plan.logical import ColumnExpr, SortOrder, col, lit
 from .plan.physical import convert, plan_schema
 from .plan.pushdown import prune_columns
 from .types import (BooleanType, ByteType, DataType, DateType, DoubleType,
-                    FloatType, IntegerType, LongType, Schema, ShortType,
-                    StringType, StructField, TimestampType)
+                    FloatType, IntegerType, LongType, NullType, Schema,
+                    ShortType, StringType, StructField, TimestampType)
 
 
 _BY_NUMPY = {t.np_dtype: t for t in (BooleanType, ByteType, ShortType,
@@ -81,7 +81,16 @@ class TpuSession:
                                              table.arrow_nbytes(n)))
 
     def plan(self, logical: L.LogicalPlan) -> ExecNode:
-        return convert(prune_columns(logical, self.conf), self.conf)
+        """The physical plan.  Raises NotImplementedError for a
+        null-typed output column, which the JAX package cannot collect
+        (it has no Arrow type for null); a null inside the tree runs."""
+        root = convert(prune_columns(logical, self.conf), self.conf)
+        nulls = [f.name for f in root.schema if f.dtype is NullType]
+        if nulls:
+            raise NotImplementedError(
+                f"null-typed output columns {nulls} are not ported: the JAX "
+                "package cannot collect them")
+        return root
 
     def _execute(self, logical: L.LogicalPlan, rows: bool):
         root = DeviceToHostExec(self.plan(logical))

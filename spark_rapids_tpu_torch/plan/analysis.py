@@ -8,8 +8,11 @@ NotImplementedError with the same message).
 Produces typed, bound Expression trees.  Type coercion follows the JAX
 package's `coerce_pair`: numeric pairs promote inside the binary op, and
 a string literal compared with a date column is cast to a date.  That
-cast is folded here, at analysis, into a date literal; a cast of a string
-column raises (ops/cast.py is not ported yet).
+cast is folded here, at analysis, into a date literal.  Every other cast
+the JAX package inserts there (a string operand to the other side's
+type, a date to a timestamp) raises NotImplementedError, since
+ops/cast.py is not ported yet; AnalysisError is left for the pairs the
+JAX package rejects too.
 """
 from __future__ import annotations
 
@@ -18,10 +21,11 @@ import re
 from typing import List, Optional, Tuple
 
 from ..ops import expressions as E
+from ..ops import strings as S
 from ..ops.aggregates import AGG_FUNCS, AggregateExpression
 from ..exec.join import joined_schema
 from ..ops.cast import Cast
-from ..types import DateType, NullType, Schema, promote
+from ..types import DateType, NullType, Schema, TimestampType, promote
 from .logical import ColumnExpr, LogicalJoin, col
 
 _DATE_RE = re.compile(r"(\d{4})-(\d{1,2})-(\d{1,2})")
@@ -32,13 +36,15 @@ class AnalysisError(Exception):
     pass
 
 
-def _fold_string_to_date(e: E.Expression) -> E.Expression:
-    """Cast(string -> date) of a literal, folded: `yyyy-M-d` with
-    surrounding whitespace becomes a date literal, anything else null
-    (Spark's and the JAX package's cast).  A column child raises."""
-    if not isinstance(e, E.Literal):
+def _cast_string(e: E.Expression, to) -> E.Expression:
+    """The JAX package's cast of a string operand to the other side's
+    type.  The port has one such cast, folded: a string literal into a
+    date, where `yyyy-M-d` with surrounding whitespace becomes a date
+    literal and anything else null (Spark's and the JAX package's cast).
+    Any other raises."""
+    if to is not DateType or not isinstance(e, E.Literal):
         raise NotImplementedError(
-            "cast of a string column to date is not ported; only string "
+            f"cast string -> {to.name} of {e!r} is not ported; only string "
             "literals fold into dates")
     if e.value is None:
         return E.Literal(None, DateType)
@@ -65,10 +71,18 @@ def coerce_pair(l: E.Expression, r: E.Expression, op: str
         return l, E.Literal(None, lt)
     if lt.is_numeric and rt.is_numeric:
         return l, r  # BinaryExpression promotes internally
-    if lt.is_string and rt is DateType:
-        return _fold_string_to_date(l), r
-    if rt.is_string and lt is DateType:
-        return l, _fold_string_to_date(r)
+    # the JAX package casts a string side to any other type
+    if lt.is_string:
+        return _cast_string(l, rt), r
+    if rt.is_string:
+        return l, _cast_string(r, lt)
+    if {lt, rt} == {DateType, TimestampType}:
+        raise NotImplementedError(
+            f"cast date -> timestamp (for {op} of {lt.name} and {rt.name}) "
+            "is not ported")
+    if op in E.COMPARISONS and lt.name == rt.name:
+        raise NotImplementedError(
+            f"{op} of two distinct {lt.name} type objects is not ported")
     raise AnalysisError(f"cannot apply {op} to {lt.name} and {rt.name}")
 
 
@@ -105,6 +119,9 @@ def resolve(ce, schema: Schema) -> E.Expression:
         return E.AtLeastNNonNulls(n, [resolve(a, schema) for a in child_ces])
     if op in ("Least", "Greatest"):
         return getattr(E, op)(*[resolve(a, schema) for a in ce.args])
+    if op in S.STRING_EXPRESSIONS:
+        return S.STRING_EXPRESSIONS[op](*[resolve(a, schema)
+                                          for a in ce.args])
     if op in E.EXPRESSIONS:
         args = [resolve(a, schema) for a in ce.args]
         if len(args) == 2 and (op in E.COMPARISONS or op in E.ARITHMETIC):

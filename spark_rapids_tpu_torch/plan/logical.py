@@ -3,9 +3,10 @@ spark_rapids_tpu/plan/logical.py): `col`, `lit`, the arithmetic,
 comparison and boolean operators, `between`, `isin`, `is_null` and
 `is_not_null`, the aggregate functions sum, avg, count, min and max,
 `when`/`otherwise`, `coalesce`, `isnan`, `least` and `greatest`,
-`SortOrder`, and the scan, filter, project, aggregate, join, sort and
-limit nodes.  Op names and argument layouts are the JAX package's, so one
-ColumnExpr tree means the same to both.
+`substr`, `startswith`, `endswith`, `contains` and `like`, `SortOrder`,
+and the scan, filter, project, aggregate, join, sort and limit nodes.
+Op names and argument layouts are the JAX package's, so one ColumnExpr
+tree means the same to both.
 """
 from __future__ import annotations
 
@@ -92,6 +93,21 @@ class ColumnExpr:
 
     def is_not_null(self) -> "ColumnExpr":
         return ColumnExpr("IsNotNull", (self,))
+
+    def substr(self, pos, length) -> "ColumnExpr":
+        return ColumnExpr("Substring", (self, _wrap(pos), _wrap(length)))
+
+    def startswith(self, s) -> "ColumnExpr":
+        return ColumnExpr("StartsWith", (self, _wrap(s)))
+
+    def endswith(self, s) -> "ColumnExpr":
+        return ColumnExpr("EndsWith", (self, _wrap(s)))
+
+    def contains(self, s) -> "ColumnExpr":
+        return ColumnExpr("Contains", (self, _wrap(s)))
+
+    def like(self, pattern: str) -> "ColumnExpr":
+        return ColumnExpr("Like", (self, _wrap(pattern)))
 
     @property
     def output_name(self) -> str:

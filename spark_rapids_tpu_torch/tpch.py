@@ -1,6 +1,7 @@
 """TPC-H for the port: a vectorised generator of the columns that q1,
-q3, q4, q6, q12 and q18 read (lineitem, orders and customer), the queries
-in the port's DataFrame API, and numpy oracles for them.
+q3, q4, q6, q12, q18 and q22 read (lineitem, orders and customer), the
+queries in the port's DataFrame API, string filters over o_comment, and
+numpy oracles for them.
 
 The generator draws from the distributions of the JAX package's
 benchmarks/tpch/datagen.py, with numpy's own generator seeded by `seed`:
@@ -8,7 +9,8 @@ the same shapes, key ranges and distributions, not the same rows.
   * orders: ~1,500,000 * sf, o_orderkey 1..n, o_custkey uniform over the
     customers, order date uniform in [1992-01-01, 1998-08-02 - 151 days),
     priority uniform over PRIORITIES, ship priority 0, total price
-    U(900, 500000) rounded to cents;
+    U(900, 500000) rounded to cents, comment 2-5 of WORDS joined by
+    spaces;
   * lineitem: 1-7 lines per order (~6,000,000 * sf rows), ship date 1-121
     days after the order date, commit date 30-90 days after it, receipt
     date 1-30 days after the ship date, quantity 1-50, price = quantity *
@@ -16,7 +18,9 @@ the same shapes, key ranges and distributions, not the same rows.
     rounded to cents, return flag A/N/R, line status F/O, ship mode
     uniform over SHIPMODES;
   * customer: ~150,000 * sf, c_custkey 1..n, c_name "Customer#%09d",
-    market segment uniform over SEGMENTS.
+    market segment uniform over SEGMENTS, phone "NN-NNN-NNN-NNNN" whose
+    NN is a nation key uniform over 0..24 plus 10, account balance
+    U(-999.99, 9999.99) rounded to cents.
 Strings come as numpy byte arrays, built without a per-row Python loop.
 """
 from __future__ import annotations
@@ -45,6 +49,10 @@ END = days("1998-08-02")
 SEGMENTS = ["AUTOMOBILE", "BUILDING", "FURNITURE", "MACHINERY", "HOUSEHOLD"]
 PRIORITIES = ["1-URGENT", "2-HIGH", "3-MEDIUM", "4-NOT SPECIFIED", "5-LOW"]
 SHIPMODES = ["REG AIR", "AIR", "RAIL", "SHIP", "TRUCK", "MAIL", "FOB"]
+WORDS = ["express", "special", "pending", "deposits", "packages", "regular",
+         "requests", "accounts", "ironic", "final", "unusual", "Customer",
+         "Complaints", "carefully", "quickly", "furiously", "slyly"]
+N_NATIONS = 25
 
 LINEITEM = Schema([StructField("l_orderkey", LongType),
                    StructField("l_quantity", DoubleType),
@@ -62,21 +70,72 @@ ORDERS = Schema([StructField("o_orderkey", LongType),
                  StructField("o_totalprice", DoubleType),
                  StructField("o_orderdate", DateType),
                  StructField("o_orderpriority", StringType),
-                 StructField("o_shippriority", LongType)])
+                 StructField("o_shippriority", LongType),
+                 StructField("o_comment", StringType)])
 CUSTOMER = Schema([StructField("c_custkey", LongType),
                    StructField("c_name", StringType),
-                   StructField("c_mktsegment", StringType)])
+                   StructField("c_mktsegment", StringType),
+                   StructField("c_phone", StringType),
+                   StructField("c_acctbal", DoubleType)])
 SCHEMAS = {"lineitem": LINEITEM, "orders": ORDERS, "customer": CUSTOMER}
 
 
 def _numbered(prefix: str, keys: np.ndarray, width: int) -> np.ndarray:
     """`prefix` + each key zero-padded to `width` digits, as a byte array
     built from a digit matrix."""
-    digits = (keys[:, None] // 10 ** np.arange(width - 1, -1, -1)) % 10
     pre = np.frombuffer(prefix.encode(), dtype=np.uint8)
     mat = np.concatenate([np.broadcast_to(pre, (len(keys), len(pre))),
-                          (digits + ord("0")).astype(np.uint8)], axis=1)
+                          _digits(keys, width)], axis=1)
+    return _as_bytes(mat)
+
+
+def _as_bytes(mat: np.ndarray) -> np.ndarray:
+    """A uint8 matrix as a numpy byte-string array, one row a string
+    (trailing zero bytes dropped)."""
     return np.ascontiguousarray(mat).view(f"S{mat.shape[1]}").reshape(-1)
+
+
+def _digits(v: np.ndarray, width: int) -> np.ndarray:
+    """ASCII digit matrix of `v`, zero-padded to `width` digits."""
+    return ((v[:, None] // 10 ** np.arange(width - 1, -1, -1)) % 10
+            + ord("0")).astype(np.uint8)
+
+
+def _phones(rng: np.random.Generator, n: int) -> np.ndarray:
+    """`n` phones "NN-NNN-NNN-NNNN" (benchmarks/tpch/datagen.py's form):
+    NN = nation key + 10, then three random groups."""
+    dash = np.full((n, 1), ord("-"), np.uint8)
+    parts = [_digits(rng.integers(0, N_NATIONS, n) + 10, 2), dash,
+             _digits(rng.integers(100, 999, n), 3), dash,
+             _digits(rng.integers(100, 999, n), 3), dash,
+             _digits(rng.integers(1000, 9999, n), 4)]
+    return _as_bytes(np.concatenate(parts, axis=1))
+
+
+def _comments(rng: np.random.Generator, n: int) -> np.ndarray:
+    """`n` comments of 2-5 WORDS joined by single spaces, written into
+    one byte matrix a word slot at a time."""
+    lens = np.array([len(w) for w in WORDS])
+    wmax = int(lens.max())
+    table = np.zeros((len(WORDS), wmax), np.uint8)
+    for i, w in enumerate(WORDS):
+        table[i, :len(w)] = np.frombuffer(w.encode(), np.uint8)
+    k = rng.integers(2, 6, n)
+    pick = rng.integers(0, len(WORDS), (n, 5), dtype=np.int8)
+    width = 5 * (wmax + 1) - 1
+    out = np.zeros(n * width, np.uint8)
+    # the flat index of each row's next byte; a word is written with its
+    # zero padding, which the next slot overwrites
+    at = np.arange(n, dtype=np.int64) * width
+    for slot in range(5):
+        live = np.flatnonzero(slot < k)
+        if slot:
+            out[at[live]] = ord(" ")
+            at[live] += 1
+        w = pick[live, slot]
+        out[at[live, None] + np.arange(wmax)] = table[w]
+        at[live] += lens[w]
+    return _as_bytes(out.reshape(n, width))
 
 
 def generate(sf: float, seed: int = 42) -> Dict[str, Dict[str, np.ndarray]]:
@@ -129,6 +188,12 @@ def generate(sf: float, seed: int = 42) -> Dict[str, Dict[str, np.ndarray]]:
             rng2.integers(0, len(PRIORITIES), n_ord)],
         "o_shippriority": np.zeros(n_ord, dtype=np.int64),
     }
+    # the columns q22 and the string filters read from a fourth stream
+    rng4 = np.random.default_rng([seed, 3])
+    customer["c_phone"] = _phones(rng4, n_cust)
+    customer["c_acctbal"] = np.round(rng4.uniform(-999.99, 9999.99, n_cust),
+                                     2)
+    orders["o_comment"] = _comments(rng4, n_ord)
     return {"lineitem": lineitem, "orders": orders, "customer": customer}
 
 
@@ -138,8 +203,8 @@ def generate_lineitem(sf: float, seed: int = 42) -> Dict[str, np.ndarray]:
 
 
 # --------------------------------------------------------------------------
-# the queries (benchmarks/tpch/queries.py q1, q6, and q18's inner
-# lineitem aggregate)
+# the queries (benchmarks/tpch/queries.py q1, q3, q4, q6, q12, q18, q22,
+# and q18's inner lineitem aggregate)
 # --------------------------------------------------------------------------
 
 def q1(li):
@@ -239,10 +304,73 @@ def q12(t):
             .order_by("l_shipmode"))
 
 
+Q22_CODES = ["13", "31", "23", "29", "30", "18", "17"]
+
+
+def q22(t):
+    """TPC-H q22: customers of seven country codes with an above-average
+    positive balance and no order, counted and summed by code.  The
+    average is collected first, in a query of its own."""
+    cust = t["customer"].with_column("cntrycode",
+                                     col("c_phone").substr(1, 2))
+    cust = cust.filter(col("cntrycode").isin(*Q22_CODES))
+    avg_bal = cust.filter(col("c_acctbal") > 0.0) \
+        .agg(F.avg(col("c_acctbal")).alias("a")).collect()[0][0] or 0.0
+    rich = cust.filter(col("c_acctbal") > avg_bal)
+    no_orders = rich.join(t["orders"],
+                          on=col("c_custkey") == col("o_custkey"),
+                          how="left_anti")
+    return (no_orders.group_by(col("cntrycode"))
+            .agg(F.count(lit(1)).alias("numcust"),
+                 F.sum(col("c_acctbal")).alias("totacctbal"))
+            .order_by("cntrycode"))
+
+
 # the lineitem-only queries take the lineitem DataFrame, the joins a dict
 # of DataFrames by table name
 QUERIES = {"q1": q1, "q6": q6, "q18_inner": q18_inner}
-JOIN_QUERIES = {"q3": q3, "q4": q4, "q12": q12, "q18": q18}
+JOIN_QUERIES = {"q3": q3, "q4": q4, "q12": q12, "q18": q18, "q22": q22}
+
+
+# --------------------------------------------------------------------------
+# string filters over o_comment: count(*) of the orders that pass each
+# --------------------------------------------------------------------------
+
+def _like_special_requests(a: np.ndarray) -> np.ndarray:
+    """LIKE '%special%requests%': "requests" after the first "special"."""
+    i = np.char.find(a, b"special")
+    return (i >= 0) & (np.char.find(a, b"requests", np.maximum(i, 0) + 7)
+                       >= 0)
+
+
+_COMMENT = col("o_comment")
+# name -> (predicate, numpy oracle over the `S` array of o_comment)
+STRING_FILTERS = {
+    # q13's order filter
+    "q13_not_special_requests": (
+        ~(_COMMENT.contains("special") & _COMMENT.contains("requests")),
+        lambda a: ~((np.char.find(a, b"special") >= 0)
+                    & (np.char.find(a, b"requests") >= 0))),
+    "like_special_requests": (_COMMENT.like("%special%requests%"),
+                              _like_special_requests),
+    "startswith_furiously": (_COMMENT.startswith("furiously"),
+                             lambda a: np.char.startswith(a, b"furiously")),
+    "endswith_requests": (_COMMENT.endswith("requests"),
+                          lambda a: np.char.endswith(a, b"requests")),
+    "substr_special": (_COMMENT.substr(1, 7) == "special",
+                       lambda a: a.astype("S7") == b"special"),
+}
+
+
+def string_filter(orders, name: str):
+    """count(*) of the orders whose o_comment passes STRING_FILTERS[name]."""
+    return orders.filter(STRING_FILTERS[name][0]) \
+        .agg(F.count(lit(1)).alias("n"))
+
+
+def oracle_string_filter(orders: Dict[str, np.ndarray],
+                         name: str) -> List[tuple]:
+    return [(int(STRING_FILTERS[name][1](orders["o_comment"]).sum()),)]
 
 
 # --------------------------------------------------------------------------
@@ -377,9 +505,25 @@ def oracle_q12(t) -> List[tuple]:
             for k, h, n in zip(modes, n_high, n_all)]
 
 
+def oracle_q22(t) -> List[tuple]:
+    c, o = t["customer"], t["orders"]
+    code = c["c_phone"].astype("S2")
+    bal = c["c_acctbal"]
+    keep = np.isin(code, np.array(Q22_CODES, dtype="S2"))
+    pos = keep & (bal > 0.0)
+    avg = float(bal[pos].mean()) if pos.any() else 0.0
+    rich = keep & (bal > avg) \
+        & ~_in_keys(o["o_custkey"], c["c_custkey"])
+    codes, inv = np.unique(code[rich], return_inverse=True)
+    total = np.bincount(inv, weights=bal[rich], minlength=len(codes))
+    count = np.bincount(inv, minlength=len(codes))
+    return [(k.decode(), int(n), float(v))
+            for k, n, v in zip(codes, count, total)]
+
+
 ORACLES = {"q1": oracle_q1, "q6": oracle_q6, "q18_inner": oracle_q18_inner,
            "q3": oracle_q3, "q4": oracle_q4, "q12": oracle_q12,
-           "q18": oracle_q18}
+           "q18": oracle_q18, "q22": oracle_q22}
 # how many of the oracle's rows each top-N query keeps, and the column it
 # orders by first
 TOP_N = {"q3": (10, 3), "q18": (100, 4)}

@@ -13,6 +13,7 @@ import pytest
 import torch
 
 import test_torch_expressions as X
+import test_torch_strings as XS
 from spark_rapids_tpu_torch.ops import kernels as K
 
 pytestmark = pytest.mark.cuda
@@ -514,3 +515,40 @@ def test_q12_on_card_matches_cpu(dev, plan):
         out[str(device)] = tpch.q12(d).collect()
     assert len(out["cpu"]) == 2
     assert out["cpu"] == out[str(dev)] == tpch.oracle_q12(t)
+
+
+@pytest.mark.parametrize("case", list(XS.CASES))
+def test_string_expressions_on_card_match_cpu(dev, case):
+    """Each string predicate and Substring case of
+    tests/test_torch_strings.py, on the same seeded table, on the card and
+    on the CPU: the same null masks, booleans and bytes."""
+    from spark_rapids_tpu_torch import TpuSession
+    data = XS.table()
+    out = {}
+    for device in ("cpu", dev):
+        df = XS.port_df(TpuSession(device=device), data)
+        out[str(device)] = XS.port_rows(XS.query(df, XS.PORT, case))
+    assert len(out["cpu"][0]) == XS.N
+    assert out["cpu"] == out[str(dev)]
+
+
+@pytest.mark.parametrize("plan", ["default", "hash_joins"])
+def test_q22_and_string_filters_on_card_match_cpu(dev, plan):
+    """TPC-H q22 (Substring, In over strings, a collected average, a
+    left_anti join) and the string filters over o_comment, at SF0.01
+    with every 8th order, on the card and on the CPU."""
+    from spark_rapids_tpu_torch import TpuSession, tpch
+    t = tpch.generate(0.01)
+    t["orders"] = {k: v[::8] for k, v in t["orders"].items()}
+    conf = {"spark.rapids.sql.variableFloatAgg.enabled": "true",
+            **(_HASH_JOINS if plan == "hash_joins" else {})}
+    out = {}
+    for device in ("cpu", dev):
+        s = TpuSession(conf, device=device)
+        d = {n: s.from_numpy(v, tpch.SCHEMAS[n]) for n, v in t.items()}
+        out[str(device)] = [tpch.q22(d).collect()] + [
+            tpch.string_filter(d["orders"], name).collect()
+            for name in tpch.STRING_FILTERS]
+    assert len(out["cpu"][0]) == 7
+    for want, got in zip(out["cpu"], out[str(dev)]):
+        assert tpch.rows_match(want, got)

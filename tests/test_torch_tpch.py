@@ -288,3 +288,90 @@ def test_join_queries_match_numpy_oracle(name):
             assert tpch.top_rows_match(want, got, *tpch.TOP_N[name]), name
         else:
             assert tpch.rows_match(want, got), name
+
+
+# --------------------------------------------------------------------------
+# q22 and the string filters over o_comment
+# --------------------------------------------------------------------------
+
+def _every_8th_order(orders: dict) -> dict:
+    """The orders at index 0, 8, 16, ...: with all of them each customer
+    has about 10 orders and q22's anti join keeps no one."""
+    return {k: v[::8] for k, v in orders.items()}
+
+
+@pytest.mark.parametrize("plan", ["default", "hash_joins"])
+def test_q22_rows_and_plans_equal(join_tables, plan):
+    conf = dict(CONF, **(HASH_JOINS if plan == "hash_joins" else {}))
+    tables = {"customer": join_tables["customer"],
+              "orders": (_every_8th_order(join_tables["orders"][0]),
+                         join_tables["orders"][1])}
+    js = JaxSession(dict(conf))
+    jdf = QUERIES[22]({n: js.from_pydict(d, JAX_SCHEMAS[n])
+                       for n, (d, _) in tables.items()})
+    ps = TpuSession(dict(conf), device="cpu")
+    pdf = tpch.q22({n: ps.from_numpy(d, sch)
+                    for n, (d, sch) in tables.items()})
+    want, got = jax_table_rows(jdf), pdf.collect()
+    assert len(got) == 7
+    assert_rows_equal(want, got, ignore_order=False)
+    jn, pn = join_nodes(jdf.physical_plan()), join_nodes(pdf.physical_plan())
+    assert jn == pn and len(pn) == 1, (jn, pn)
+    assert pn[0][:2] == ("TpuHashJoinExec" if plan == "hash_joins"
+                         else "TpuBroadcastHashJoinExec", "left_anti")
+
+
+@pytest.fixture(scope="module")
+def port_tables_cut():
+    """The port's own tables at SF0.01 with every 8th order."""
+    t = tpch.generate(SF)
+    return dict(t, orders=_every_8th_order(t["orders"]))
+
+
+@pytest.mark.parametrize("plan", ["default", "hash_joins"])
+def test_q22_matches_numpy_oracle(port_tables_cut, plan):
+    t = port_tables_cut
+    s = TpuSession(dict(CONF, **(HASH_JOINS if plan == "hash_joins"
+                                 else {})), device="cpu")
+    d = {n: s.from_numpy(v, tpch.SCHEMAS[n]) for n, v in t.items()}
+    got, want = tpch.q22(d).collect(), tpch.oracle_q22(t)
+    assert len(got) == 7
+    assert tpch.rows_match(want, got)
+
+
+@pytest.mark.parametrize("name", list(tpch.STRING_FILTERS))
+def test_string_filters_match_numpy_oracle(port_tables_cut, name):
+    orders = port_tables_cut["orders"]
+    s = TpuSession(dict(CONF), device="cpu")
+    got = tpch.string_filter(s.from_numpy(orders, tpch.ORDERS),
+                             name).collect()
+    want = tpch.oracle_string_filter(orders, name)
+    assert 0 < want[0][0] < len(orders["o_comment"])
+    assert got == want
+
+
+# sha256 (first 16 hex digits) of each column of generate(0.01) from
+# before c_phone, c_acctbal and o_comment were added
+_EARLIER_COLUMNS = {
+    "c_custkey": "fb7b257e03ce330e", "c_mktsegment": "da70ad55e314ae97",
+    "c_name": "b97659d77d102fa2", "l_commitdate": "57a4a90896e9386b",
+    "l_discount": "0766a3f235119353", "l_extendedprice": "c91fe2c0c61b5789",
+    "l_linestatus": "93c379e94fa9ba2e", "l_orderkey": "b4d41cced689ceaa",
+    "l_quantity": "2d694d2be6aea700", "l_receiptdate": "5382fd40594d01d9",
+    "l_returnflag": "96582ad97aa8f5e8", "l_shipdate": "a6a6fe6cbe18ca44",
+    "l_shipmode": "6187a9481315ef08", "l_tax": "1a824509e0937e5c",
+    "o_custkey": "886f85f5b34c3d04", "o_orderdate": "4c89d0b12c4f7f95",
+    "o_orderkey": "211762750ba2a2cc", "o_orderpriority": "dc0510ee2816cb45",
+    "o_shippriority": "9a413b131ecf0ccf", "o_totalprice": "5a0631dca16c474f"}
+
+
+def test_new_columns_leave_the_earlier_columns_values_unchanged():
+    import hashlib
+    t = tpch.generate(SF)
+    got = {c: hashlib.sha256(np.ascontiguousarray(v).tobytes())
+           .hexdigest()[:16]
+           for table in t.values() for c, v in table.items()
+           if c in _EARLIER_COLUMNS}
+    assert got == _EARLIER_COLUMNS
+    assert {"c_phone", "c_acctbal"} <= set(t["customer"]) \
+        and "o_comment" in t["orders"]
