@@ -21,31 +21,42 @@ Phases, each printing a line:
      beside its bound;
   3. queries: TPC-H lineitem (60 M rows, one 2^26-row batch), orders
      (15 M) and customer (1.5 M) at SF10, generated on the host from seed
-     42; q1, q6 and q18's inner lineitem aggregate, then q3, q4, q12, q18
-     and q22 whole (inner, semi and anti equi-joins, limits; q12's In and
-     CaseWhen over string columns; q22's Substring of c_phone, a
-     collected average and a left_anti join building all 15 M orders),
-     through
+     42; q1, q6 and q18's inner lineitem aggregate, then q3, q4, q12,
+     q13, q18 and q22 whole (inner, semi, anti and left outer
+     equi-joins, limits; q12's In and CaseWhen over string columns; q13's
+     Contains filter over o_comment, a left outer join building the 15 M
+     orders it keeps, o_comment included, and an aggregate over 1.5 M
+     customers; q22's Substring of c_phone, a collected average and a
+     left_anti join building all 15 M orders), through
      TpuSession(device="cuda"), each compared with a numpy oracle.  The
      session sets spark.rapids.sql.tpu.join.partitioned.enabled=false: at
      SF10 the JAX package's rules partition every one of these joins
      (their build sides are estimated above 64 MB), and the port has no
      exchange yet, so each join builds its whole right side as one batch.
      For each query: the plan's join execs (type, build side, broadcast
-     or not), the kernel launches of its first run, the warm median of
-     3, the device busy share and the costliest kernels of one more warm
-     run under torch.profiler, and the device bytes held before its first
-     run (the tables) and at its peak.  The launch
-     counts of the first runs show the queries went through all three
-     kernels (K3 in every hash-join build, counted around the build
-     itself, and K1, K2 and K3 in q18's aggregate), and every shape a
-     kernel was launched at there that phase 2 did not cover is held
+     or not, swapped or not), the update path of each aggregate, the
+     kernel launches of its first run, the warm median of 3, the device
+     busy share and the costliest kernels of one more warm run under
+     torch.profiler, and the device bytes held before its first run (the
+     tables) and at its peak; for q13 also its rows (about 30 (c_count,
+     custdist) pairs), whose c_count 0 group counts the customers that
+     reach the left outer join's unmatched path.  The launch counts of
+     the first runs show the queries went through all three kernels (K3
+     in every hash-join build, counted around the build itself, and K1,
+     K2 and K3 in q13's and q18's sort-path aggregates), and every shape
+     a kernel was launched at there that phase 2 did not cover is held
      against the plain version too;
   4. string filters: count(*) of the orders whose o_comment (2^24 rows of
      up to 64 bytes) passes each of tpch.STRING_FILTERS (Contains, Like,
      StartsWith, EndsWith, Substring), each against its numpy oracle,
      with the kernel launches of its first run (counts set to 0 before
-     it), the warm median of 3, the busy share and the peak device bytes.
+     it), the warm median of 3, the busy share and the peak device bytes;
+  5. outer joins: each of tpch.OUTER_JOINS (1992's orders and the
+     BUILDING customers: a right outer join, planned as a left outer
+     join building the orders, and a full outer join building the
+     customers, whose tail is the customers without a 1992 order),
+     counted and held to its numpy oracle, with the same numbers as the
+     filters and its join execs; each must launch K3 in its build.
 The second-last line is the card as nvidia-smi names it; the last is
 {"ok": true, "device": {...}}.  Any failure raises: nothing is caught,
 and the script prints no result line without a CUDA device.
@@ -331,12 +342,16 @@ def run_queries(tables: dict, device: str = "cuda") -> tuple:
             queries[name]().collect()
             warm.append((time.perf_counter() - t0) * 1e3)
         print("query " + json.dumps({
-            "query": name, "rows": len(got), "matches_oracle": match,
+            "query": name, "rows": len(got),
+            "matches_oracle": match,
             "joins": joins, "first_ms": ms, "warm_ms": warm,
             "warm_median_ms": statistics.median(warm),
             "agg_update_paths": paths, "launches": own,
             "resident_device_bytes": mem[0], "peak_device_bytes": mem[1],
-            "profile": profile_query(queries[name])}), flush=True)
+            "profile": profile_query(queries[name]),
+            **({"result": [[int(v) for v in r] for r in got]}
+               if name == "q13" else {})}),
+            flush=True)
         if not match or not got:
             raise AssertionError(f"{name} disagrees with the numpy oracle "
                                  f"or is empty: {got[:3]} vs {want[:3]}")
@@ -346,9 +361,10 @@ def run_queries(tables: dict, device: str = "cuda") -> tuple:
         if unsorted:
             raise AssertionError(f"{name}: hash-join builds that launched "
                                  f"no K3: {unsorted}")
-    if not all(first["q18"][3].values()):
-        raise AssertionError(f"q18 did not launch every kernel: "
-                             f"{first['q18'][3]}")
+    for name in ("q13", "q18"):  # both aggregate on the sort path
+        if not all(first[name][3].values()):
+            raise AssertionError(f"{name} did not launch every kernel: "
+                                 f"{first[name][3]}")
     print("launches in the query phase " + json.dumps(launches), flush=True)
     print("shapes launched in the query phase "
           + json.dumps([[k, [str(x) for x in s]] for k, s in shapes]),
@@ -360,34 +376,62 @@ def run_queries(tables: dict, device: str = "cuda") -> tuple:
     return launches, shapes, dfs
 
 
+def measure(q) -> tuple:
+    """One DataFrame `q()` on the card: its first run between a
+    launch-count reset and a read, then the warm median of REPS and one
+    profiled run.  Returns (the first run's rows and DataFrame, the
+    numbers to print)."""
+    K.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    df = q()
+    got = df.collect()
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = K.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    warm = []
+    for _ in range(REPS):
+        t0 = time.perf_counter()
+        q().collect()
+        warm.append((time.perf_counter() - t0) * 1e3)
+    return got, df, {"first_ms": ms, "warm_ms": warm,
+                     "warm_median_ms": statistics.median(warm),
+                     "launches": launches, "peak_device_bytes": peak,
+                     "profile": profile_query(q)}
+
+
 def run_string_filters(orders_df, orders: dict) -> None:
     """Each string filter over o_comment on the card against its numpy
-    oracle: its first run between a launch-count reset and a read, then
-    the warm median of REPS and one profiled run."""
+    oracle (`measure`)."""
     for name in tpch.STRING_FILTERS:
-        def q(name=name):
-            return tpch.string_filter(orders_df, name)
-        K.reset_launches()
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        got = q().collect()
-        ms = (time.perf_counter() - t0) * 1e3
-        launches = K.launch_counts()
-        peak = torch.cuda.max_memory_allocated()
+        got, _, numbers = measure(
+            lambda name=name: tpch.string_filter(orders_df, name))
         want = tpch.oracle_string_filter(orders, name)
-        warm = []
-        for _ in range(REPS):
-            t0 = time.perf_counter()
-            q().collect()
-            warm.append((time.perf_counter() - t0) * 1e3)
-        print("filter " + json.dumps({
-            "filter": name, "count": got, "oracle": want, "first_ms": ms,
-            "warm_ms": warm, "warm_median_ms": statistics.median(warm),
-            "launches": launches, "peak_device_bytes": peak,
-            "profile": profile_query(q)}), flush=True)
+        print("filter " + json.dumps({"filter": name, "count": got,
+                                      "oracle": want, **numbers}),
+              flush=True)
         if got != want:
             raise AssertionError(f"string filter {name}: {got} against the "
                                  f"numpy oracle's {want}")
+
+
+def run_outer_joins(dfs: dict, tables: dict) -> None:
+    """Each outer join of tpch.OUTER_JOINS on the card against its numpy
+    oracle (`measure`), with its join execs; each build must launch K3."""
+    for name, (query, oracle) in tpch.OUTER_JOINS.items():
+        got, df, numbers = measure(lambda query=query: query(dfs))
+        joins = join_nodes(df.session.last_plan)
+        want = oracle(tables)
+        print("outer_join " + json.dumps({
+            "join": name, "counts": got, "oracle": want, "joins": joins,
+            **numbers}), flush=True)
+        if not tpch.rows_match(want, got):
+            raise AssertionError(f"outer join {name}: {got} against the "
+                                 f"numpy oracle's {want}")
+        if not joins or not all(j["build_k3_launches"] for j in joins) \
+                or not numbers["launches"]["sort_words"]:
+            raise AssertionError(f"outer join {name}: a build that "
+                                 f"launched no K3: {joins} {numbers}")
 
 
 def join_nodes(node, swapped: bool = False) -> list:
@@ -429,14 +473,13 @@ def profile_query(q, top: int = 8) -> dict:
                     for e in kernels[:top]]}
 
 
-def _update_paths(node):
-    if isinstance(node, TpuHashAggregateExec):
-        return dict(node.update_paths)
+def _update_paths(node) -> list:
+    """The update paths of every aggregate in the plan, depth first."""
+    out = [dict(node.update_paths)] \
+        if isinstance(node, TpuHashAggregateExec) else []
     for c in node.children:
-        p = _update_paths(c)
-        if p is not None:
-            return p
-    return None
+        out += _update_paths(c)
+    return out
 
 
 def main() -> int:
@@ -464,6 +507,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     launches, shapes, dfs = run_queries(tables)
     run_string_filters(dfs["orders"], tables["orders"])
+    run_outer_joins(dfs, tables)
     del dfs
     torch.cuda.empty_cache()
     rest = [ks for ks in shapes if ks not in checked]

@@ -130,8 +130,10 @@ class DataFrame:
              ) -> "DataFrame":
         """Join with `other` on a condition, a column name or a list of
         names (USING).  `how` takes Spark's spellings; the port plans
-        inner, left_semi and left_anti joins with equi keys and raises for
-        the others when the plan is made."""
+        inner, left, right, full, left_semi and left_anti joins with equi
+        keys, and raises when the plan is made where the JAX package
+        would run the join on its CPU executor: a cross join, a residual
+        condition on an outer join, a full USING join."""
         how = how.replace("outer", "").rstrip("_") or how
         how = {"leftsemi": "left_semi", "leftanti": "left_anti"}.get(how,
                                                                      how)

@@ -1,5 +1,6 @@
-"""Hash join: inner, left_semi and left_anti equi-joins (port of
-spark_rapids_tpu/exec/join.py).
+"""Hash join: inner, left outer, full outer, left_semi and left_anti
+equi-joins (port of spark_rapids_tpu/exec/join.py); a right outer join
+arrives as a left outer join with its sides swapped (plan/physical.py).
 
 No hash table: the join is a sort and a binary search, shaped like cuDF's
 count-then-gather join API, as in the JAX package.
@@ -14,12 +15,21 @@ count-then-gather join API, as in the JAX package.
   3. COUNT: a loop over d < max_dup counts, per stream row, the build rows
      lo + d whose keys really equal its own (hash collisions are rejected
      here) and that pass the residual condition.  Semi and anti joins end
-     here: they keep the stream rows with counts > 0 or == 0.
+     here: they keep the stream rows with counts > 0 or == 0.  Left and
+     full joins count a live stream row without a match (a null key too)
+     as 1.
   4. GATHER: `starts` is the exclusive prefix sum of the counts; a second
      host read takes the total, which sets the output capacity.  The same
      loop writes each match's (stream row, build row) pair to slot
      starts[i] + rank[i], so the output comes by stream row, then by build
-     position, as in the JAX package.
+     position, as in the JAX package.  A left or full join writes a stream
+     row without a match to its slot starts[i] with `matched` false, and
+     its right columns come out null (zeros in the slots).
+  5. TAIL (full joins): a mask over the sorted build batch, ORed across
+     the stream batches, marks the build rows that matched; after the last
+     stream batch, the build rows it leaves out come once more with every
+     left column null, in the build's sorted order (one host read, their
+     count, as in the JAX package).
 
 Keys compare with Spark's semantics: a null key matches nothing, NaN
 equals NaN, -0.0 equals 0.0, strings compare by length and bytes.  A
@@ -33,8 +43,7 @@ Left out of the JAX module, with where each goes:
   * `cached_kernel` and the speculative `max_dup` guess, which exist to
     reuse compiled programs: the port runs eagerly (item 8);
   * `record_cost` and the metrics timers (item 12);
-  * left and full outer joins, with their unmatched-row bookkeeping and
-    tail, and TpuShuffledHashJoinExec, which needs the exchange (item 9).
+  * TpuShuffledHashJoinExec, which needs the exchange (item 9).
 """
 from __future__ import annotations
 
@@ -126,7 +135,8 @@ class _Build:
 
 class TpuHashJoinExec(ExecNode):
     """Equi hash join streaming the LEFT child against one sorted build
-    batch of the RIGHT child."""
+    batch of the RIGHT child: inner, left, full, left_semi or left_anti
+    (a right join comes side-swapped under TpuReorderColumnsExec)."""
 
     def __init__(self, left: ExecNode, right: ExecNode, join_type: str,
                  left_keys: Sequence[E.Expression],
@@ -134,7 +144,8 @@ class TpuHashJoinExec(ExecNode):
                  condition: Optional[E.Expression], out_schema: Schema,
                  using_drop: Optional[List[int]] = None):
         super().__init__(left, right)
-        if join_type not in ("inner", "left_semi", "left_anti"):
+        if join_type not in ("inner", "left", "full", "left_semi",
+                             "left_anti"):
             raise ValueError(f"no {join_type} join in the port")
         self.join_type = join_type
         self.left_keys = list(left_keys)
@@ -201,42 +212,77 @@ class TpuHashJoinExec(ExecNode):
             return ok, bidx
         return max_dup, match
 
-    def _join_batch(self, lbatch: ColumnarBatch, b: _Build) -> ColumnarBatch:
+    def _join_batch(self, lbatch: ColumnarBatch, b: _Build,
+                    hit: Optional[torch.Tensor]) -> ColumnarBatch:
+        """One stream batch joined with the build.  A full join sets
+        hit[j] for every build row j it matches (`hit` has one more slot,
+        where the pairs that do not match write)."""
         max_dup, match = self._probe(lbatch, b)
         cap = lbatch.capacity
         dev = lbatch.device
         counts = torch.zeros(cap, dtype=torch.int64, device=dev)
         for d in range(max_dup):
             counts += match(d)[0]
-        if self.join_type != "inner":
+        if self.join_type in ("left_semi", "left_anti"):
             keep = counts > 0 if self.join_type == "left_semi" \
                 else counts == 0
             out = lbatch.filter(keep)
             return ColumnarBatch(out.columns, out.sel, self._schema)
+        outer = self.join_type != "inner"
+        if outer:
+            # a live stream row without a match keeps one slot
+            alone = lbatch.sel & (counts == 0)
+            counts = counts + alone
         starts = torch.cumsum(counts, 0) - counts
         total = int(counts.sum())
         out_cap = bucket_rows(max(total, 1))
         rows = torch.arange(cap, dtype=torch.int64, device=dev)
-        # rows without a match write to their own slot past out_cap
+        # pairs that do not match write to their row's own slot past out_cap
+        trash = out_cap + rows
         l_idx = torch.zeros(out_cap + cap, dtype=torch.int64, device=dev)
         b_idx = torch.zeros(out_cap + cap, dtype=torch.int64, device=dev)
+        matched = torch.zeros(out_cap + cap, dtype=torch.bool, device=dev) \
+            if outer else None
         rank = torch.zeros(cap, dtype=torch.int64, device=dev)
+        cap_b = b.batch.capacity
         for d in range(max_dup):
             ok, bidx = match(d)
-            slot = torch.where(ok, starts + rank, out_cap + rows)
+            slot = torch.where(ok, starts + rank, trash)
             l_idx.scatter_(0, slot, rows)
             b_idx.scatter_(0, slot, bidx)
+            if outer:
+                matched.scatter_(0, slot, ok)
+            if hit is not None:
+                hit[torch.where(ok, bidx, cap_b)] = True
             rank += ok
-        l_idx, b_idx = l_idx[:out_cap], b_idx[:out_cap]
-        cols = ([c.take(l_idx) for c in lbatch.columns]
-                + [c.take(b_idx) for c in b.batch.columns])
-        if self.using_drop:
-            cols = [c for i, c in enumerate(cols)
-                    if i not in self.using_drop]
-        out = ColumnarBatch(cols, torch.arange(out_cap, device=dev) < total,
+        rcols = [c.take(b_idx[:out_cap]) for c in b.batch.columns]
+        if outer:
+            # the row without a match takes its slot starts[i], `matched`
+            # false there: its right columns are null, their slots zeros
+            l_idx.scatter_(0, torch.where(alone, starts, trash), rows)
+            m = matched[:out_cap]
+            rcols = [c.with_valid(c.valid & m).mask_invalid() for c in rcols]
+        cols = [c.take(l_idx[:out_cap]) for c in lbatch.columns] + rcols
+        out = ColumnarBatch(self._drop_using(cols),
+                            torch.arange(out_cap, device=dev) < total,
                             self._schema)
         out.known_rows = total
         return out
+
+    def _tail(self, b: _Build, hit: torch.Tensor) -> Optional[ColumnarBatch]:
+        """A full join's build rows that no stream row matched, every left
+        column null, in the build's sorted order; None when there are
+        none (one host read, their count)."""
+        build = b.batch
+        cols = [Column.all_null(f.dtype, build.capacity, build.device)
+                for f in self.children[0].schema] + list(build.columns)
+        out = ColumnarBatch(self._drop_using(cols),
+                            build.sel & ~hit[:build.capacity], self._schema)
+        out.known_rows = int(out.num_rows())
+        return out if out.known_rows else None
+
+    def _drop_using(self, cols: List[Column]) -> List[Column]:
+        return [c for i, c in enumerate(cols) if i not in self.using_drop]
 
     # ---- execution ------------------------------------------------------
 
@@ -254,5 +300,13 @@ class TpuHashJoinExec(ExecNode):
         before = K.sort_words.launches
         build = self._build(rbatch, ctx.conf.get(SORT_PACKED_ENABLED))
         self.build_sorts = K.sort_words.launches - before
+        # full join: the build rows matched by any stream batch so far
+        hit = torch.zeros(build.batch.capacity + 1, dtype=torch.bool,
+                          device=ctx.device) \
+            if self.join_type == "full" else None
         for lbatch in self.children[0].execute(ctx):
-            yield self._join_batch(lbatch, build)
+            yield self._join_batch(lbatch, build, hit)
+        if hit is not None:
+            tail = self._tail(build, hit)
+            if tail is not None:
+                yield tail

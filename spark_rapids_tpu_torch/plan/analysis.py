@@ -135,11 +135,12 @@ def resolve(ce, schema: Schema) -> E.Expression:
 # joins
 # --------------------------------------------------------------------------
 
-# the join types the JAX package runs on its device
-_TPU_JOIN_TYPES = {"inner", "left", "left_outer", "left_semi", "left_anti",
-                   "full", "full_outer", "right", "right_outer"}
-# the ones the port has
-_PORTED_JOIN_TYPES = ("inner", "left_semi", "left_anti")
+# the join types the JAX package runs on its device, and the port too, by
+# their logical spellings, each to the canonical name the execs take
+_TPU_JOIN_TYPES = {"inner": "inner", "left": "left", "left_outer": "left",
+                   "right": "right", "right_outer": "right",
+                   "full": "full", "full_outer": "full",
+                   "left_semi": "left_semi", "left_anti": "left_anti"}
 
 
 def split_equi(cond: ColumnExpr):
@@ -163,23 +164,25 @@ def split_equi(cond: ColumnExpr):
 
 
 def resolve_join(plan: LogicalJoin, ls: Schema, rs: Schema
-                 ) -> Tuple[List[E.Expression], List[E.Expression],
+                 ) -> Tuple[str, List[E.Expression], List[E.Expression],
                             Optional[E.Expression]]:
-    """(left keys, right keys, residual condition) of a join, each key
-    pair of one type.  Raises NotImplementedError for what the port does
-    not plan: a join type other than inner, left_semi and left_anti, and
-    a join without an equi key."""
-    jt = plan.join_type
-    if jt not in _TPU_JOIN_TYPES:
+    """(canonical join type, left keys, right keys, residual condition) of
+    a join, each key pair of one type.  Raises NotImplementedError where
+    the JAX package plans the join for its CPU executor: a cross join, a
+    full USING join, a residual condition on a left, right or full join,
+    and a join without an equi key."""
+    if plan.join_type not in _TPU_JOIN_TYPES:
         raise NotImplementedError(
-            f"{jt} joins are not supported on TPU "
+            f"{plan.join_type} joins are not supported on TPU "
             "(Inner/Left/Right/Full/LeftSemi/LeftAnti; the reference "
             "stops at Inner/Left/LeftSemi/LeftAnti — device RIGHT and "
             "FULL OUTER go beyond it)")
-    if jt not in _PORTED_JOIN_TYPES:
+    jt = _TPU_JOIN_TYPES[plan.join_type]
+    if jt == "full" and plan.using:
+        # a full USING join coalesces the key across both preserved
+        # sides per row; the exec carries one side's keys
         raise NotImplementedError(
-            f"{jt} joins are not ported yet (inner, left_semi and left_anti "
-            "are): outer joins wait for their unmatched-row tail")
+            f"{jt} USING joins (coalesced keys) are not supported on TPU")
     lkeys, rkeys, cond = [], [], None
     if plan.using:
         for name in plan.using:
@@ -195,6 +198,13 @@ def resolve_join(plan: LogicalJoin, ls: Schema, rs: Schema
             lkeys.append(lk)
             rkeys.append(rk)
         if residual is not None:
+            if jt not in ("inner", "left_semi", "left_anti"):
+                # the pair-wise residual is exact for inner and semi/anti
+                # joins only; an outer join would need per-pair matched
+                # bookkeeping the exec does not carry
+                raise NotImplementedError(
+                    f"conditional {jt} joins are not supported on TPU "
+                    "(inner/semi/anti only)")
             cond = resolve(residual, joined_schema(ls, rs))
     if not lkeys:
         raise NotImplementedError(
@@ -220,4 +230,4 @@ def resolve_join(plan: LogicalJoin, ls: Schema, rs: Schema
             if rk.dtype is not target:
                 rk = Cast(rk, target)
         lkeys[i], rkeys[i] = lk, rk
-    return lkeys, rkeys, cond
+    return jt, lkeys, rkeys, cond

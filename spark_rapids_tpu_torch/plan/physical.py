@@ -10,12 +10,16 @@ time.  The session prunes the scans' columns first (plan/pushdown.py).
 
 A join is planned by the JAX package's rules (its plan/physical.py), so
 both packages choose the same exec and the same build side:
+  * a right outer join is a left outer join with the sides swapped (the
+    columns reordered back after, a USING key taken from the right
+    side), decided before the rules below, so they apply to it;
   * an inner join without a residual condition builds its left child
     instead (the sides swapped, the columns reordered back after) when
     that child is hinted for broadcast, or estimated at less than half
     the right child's bytes, unless the right child is hinted;
   * the build side is broadcast when hinted or estimated at most
-    `spark.sql.autoBroadcastJoinThreshold` bytes;
+    `spark.sql.autoBroadcastJoinThreshold` bytes, except in a full outer
+    join, which never broadcasts (its tail is emitted once per stream);
   * otherwise the JAX package partitions the join when the build side
     is estimated above `spark.rapids.sql.tpu.join.partitioned.threshold`
     (or unknown).  The port has no exchange yet, so it raises there
@@ -132,36 +136,39 @@ def _hints(plan: L.LogicalPlan):
 
 def _join(plan: L.LogicalJoin, conf: TpuConf, lc: ExecNode,
           rc: ExecNode) -> ExecNode:
-    lkeys, rkeys, cond = resolve_join(plan, lc.schema, rc.schema)
+    jt, lkeys, rkeys, cond = resolve_join(plan, lc.schema, rc.schema)
     out_schema = plan_schema(plan, conf)
-    jt = plan.join_type
     using_drop = [len(lc.schema) + rc.schema.index_of(n)
                   for n in plan.using or ()]
     build_plan = plan.children[1]
     join_schema = out_schema
     reorder = None
     build_bytes = None  # the estimate, when the swap check made it
-    if jt == "inner" and cond is None \
+    swap = key_from_right = jt == "right"
+    if swap:
+        # resolve_join refused a residual here, so none is dropped
+        jt = "left"
+    elif jt == "inner" and cond is None \
             and "broadcast" not in _hints(plan.children[1]):
         # build the smaller side: the execs always build their right
         # child, so a clearly smaller (or hinted) left child swaps in
         lb = _estimate_plan_bytes(plan.children[0], conf)
         rb = _estimate_plan_bytes(plan.children[1], conf)
-        if "broadcast" in _hints(plan.children[0]) or (
-                lb is not None and rb is not None and lb * 2 < rb):
-            lc, rc = rc, lc
-            lkeys, rkeys = rkeys, lkeys
-            build_plan, join_schema, using_drop, reorder = \
-                _swap_sides(plan, conf)
-            build_bytes = lb
-        else:
-            build_bytes = rb
+        swap = "broadcast" in _hints(plan.children[0]) or (
+            lb is not None and rb is not None and lb * 2 < rb)
+        build_bytes = lb if swap else rb
+    if swap:
+        lc, rc = rc, lc
+        lkeys, rkeys = rkeys, lkeys
+        build_plan, join_schema, using_drop, reorder = _swap_sides(
+            plan, conf, key_from_right)
 
     def wrap(node: ExecNode) -> ExecNode:
         return node if reorder is None \
             else TpuReorderColumnsExec(node, reorder, out_schema)
 
-    if _should_broadcast_build(conf, build_plan, build_bytes):
+    if jt != "full" and _should_broadcast_build(conf, build_plan,
+                                                build_bytes):
         return wrap(TpuBroadcastHashJoinExec(
             lc, TpuBroadcastExchangeExec(rc), jt, lkeys, rkeys, cond,
             join_schema, using_drop))
@@ -176,20 +183,25 @@ def _join(plan: L.LogicalJoin, conf: TpuConf, lc: ExecNode,
                                 using_drop))
 
 
-def _swap_sides(plan: L.LogicalJoin, conf: TpuConf):
-    """Column bookkeeping for an inner join run with its children
-    swapped: the exec emits [R..., L... renamed on collision], and
-    `reorder` selects the logical [L..., R minus USING keys] back (a USING
-    key comes from the left block: the values are equal across sides).
+def _swap_sides(plan: L.LogicalJoin, conf: TpuConf, key_from_right: bool):
+    """Column bookkeeping for a join run with its children swapped (a
+    right outer join, or an inner join building its left child): the
+    exec emits [R..., L... renamed on collision], and `reorder` selects
+    the logical [L..., R minus USING keys] back.  A USING key comes from
+    the right block when `key_from_right` (a right join preserves every
+    right row, so Spark's coalesced key is the right side's), else from
+    the left (an inner join's values are equal across sides).
     Returns (build_plan, join_schema, using_drop, reorder)."""
     ls = plan_schema(plan.children[0], conf)
     rs = plan_schema(plan.children[1], conf)
     n_l, n_r = len(ls), len(rs)
-    reorder = list(range(n_r, n_r + n_l))
     if plan.using:
+        reorder = [rs.index_of(f.name)
+                   if key_from_right and f.name in plan.using else n_r + i
+                   for i, f in enumerate(ls)]
         reorder += [i for i, f in enumerate(rs) if f.name not in plan.using]
     else:
-        reorder += list(range(n_r))
+        reorder = list(range(n_r, n_r + n_l)) + list(range(n_r))
     return plan.children[0], joined_schema(rs, ls), [], reorder
 
 

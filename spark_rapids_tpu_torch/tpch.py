@@ -1,7 +1,7 @@
 """TPC-H for the port: a vectorised generator of the columns that q1,
-q3, q4, q6, q12, q18 and q22 read (lineitem, orders and customer), the
-queries in the port's DataFrame API, string filters over o_comment, and
-numpy oracles for them.
+q3, q4, q6, q12, q13, q18 and q22 read (lineitem, orders and customer),
+the queries in the port's DataFrame API, string filters over o_comment,
+outer joins of orders and customers, and numpy oracles for them.
 
 The generator draws from the distributions of the JAX package's
 benchmarks/tpch/datagen.py, with numpy's own generator seeded by `seed`:
@@ -203,8 +203,8 @@ def generate_lineitem(sf: float, seed: int = 42) -> Dict[str, np.ndarray]:
 
 
 # --------------------------------------------------------------------------
-# the queries (benchmarks/tpch/queries.py q1, q3, q4, q6, q12, q18, q22,
-# and q18's inner lineitem aggregate)
+# the queries (benchmarks/tpch/queries.py q1, q3, q4, q6, q12, q13, q18,
+# q22, and q18's inner lineitem aggregate)
 # --------------------------------------------------------------------------
 
 def q1(li):
@@ -326,10 +326,69 @@ def q22(t):
             .order_by("cntrycode"))
 
 
+def q13(t):
+    """TPC-H q13: how many customers have each number of orders, the
+    orders whose comment mentions special requests left out; a customer
+    without an order counts 0 (a left outer join)."""
+    orders = t["orders"].filter(STRING_FILTERS["q13_not_special_requests"][0])
+    per_cust = (t["customer"]
+                .join(orders, on=col("c_custkey") == col("o_custkey"),
+                      how="left")
+                .with_column("has_order",
+                             F.when(col("o_orderkey").is_null(), 0)
+                             .otherwise(1))
+                .group_by(col("c_custkey"))
+                .agg(F.sum(col("has_order")).alias("c_count")))
+    return (per_cust.group_by(col("c_count"))
+            .agg(F.count(lit(1)).alias("custdist"))
+            .order_by(SortOrder(col("custdist"), ascending=False),
+                      SortOrder(col("c_count"), ascending=False)))
+
+
 # the lineitem-only queries take the lineitem DataFrame, the joins a dict
 # of DataFrames by table name
 QUERIES = {"q1": q1, "q6": q6, "q18_inner": q18_inner}
-JOIN_QUERIES = {"q3": q3, "q4": q4, "q12": q12, "q18": q18, "q22": q22}
+JOIN_QUERIES = {"q3": q3, "q4": q4, "q12": q12, "q13": q13, "q18": q18,
+                "q22": q22}
+
+
+# --------------------------------------------------------------------------
+# outer joins: 1992's orders and the BUILDING customers on o_custkey ==
+# c_custkey, counted as count(*), count(o_orderkey) and count(c_custkey)
+# --------------------------------------------------------------------------
+
+def _outer_1992(t, how: str):
+    orders = t["orders"].filter(col("o_orderdate") < "1993-01-01")
+    cust = t["customer"].filter(col("c_mktsegment") == "BUILDING")
+    return (orders.join(cust, on=col("o_custkey") == col("c_custkey"),
+                        how=how)
+            .agg(F.count(lit(1)).alias("rows"),
+                 F.count(col("o_orderkey")).alias("with_order"),
+                 F.count(col("c_custkey")).alias("with_customer")))
+
+
+def _oracle_outer_1992(t, how: str) -> List[tuple]:
+    o, c = t["orders"], t["customer"]
+    okey = o["o_custkey"][o["o_orderdate"] < days("1993-01-01")]
+    ckey = c["c_custkey"][_text(c["c_mktsegment"]) == "BUILDING"]
+    order_hit = _in_keys(ckey, okey)     # the orders with a customer
+    cust_hit = _in_keys(okey, ckey)      # the customers with an order
+    pairs = int(order_hit.sum())         # c_custkey is unique
+    lone_orders = len(okey) - pairs if how == "full" else 0
+    lone_cust = int((~cust_hit).sum())
+    return [(pairs + lone_orders + lone_cust, pairs + lone_orders,
+             pairs + lone_cust)]
+
+
+# name -> (query over the dict of DataFrames, numpy oracle over the tables)
+OUTER_JOINS = {
+    # planned as a left join of the customers building the orders side
+    "right_outer_1992": (lambda t: _outer_1992(t, "right"),
+                         lambda t: _oracle_outer_1992(t, "right")),
+    # builds the customers; its tail is the customers without an order
+    "full_outer_1992": (lambda t: _outer_1992(t, "full"),
+                        lambda t: _oracle_outer_1992(t, "full")),
+}
 
 
 # --------------------------------------------------------------------------
@@ -505,6 +564,18 @@ def oracle_q12(t) -> List[tuple]:
             for k, h, n in zip(modes, n_high, n_all)]
 
 
+def oracle_q13(t) -> List[tuple]:
+    c, o = t["customer"], t["orders"]
+    keep = STRING_FILTERS["q13_not_special_requests"][1](o["o_comment"])
+    okey = o["o_custkey"][keep]
+    okey = okey[_in_keys(c["c_custkey"], okey)]
+    per_cust = np.bincount(_row_of(c["c_custkey"], okey),
+                           minlength=len(c["c_custkey"]))
+    c_count, custdist = np.unique(per_cust, return_counts=True)
+    order = np.lexsort((-c_count, -custdist))
+    return [(int(c_count[i]), int(custdist[i])) for i in order]
+
+
 def oracle_q22(t) -> List[tuple]:
     c, o = t["customer"], t["orders"]
     code = c["c_phone"].astype("S2")
@@ -523,7 +594,7 @@ def oracle_q22(t) -> List[tuple]:
 
 ORACLES = {"q1": oracle_q1, "q6": oracle_q6, "q18_inner": oracle_q18_inner,
            "q3": oracle_q3, "q4": oracle_q4, "q12": oracle_q12,
-           "q18": oracle_q18, "q22": oracle_q22}
+           "q13": oracle_q13, "q18": oracle_q18, "q22": oracle_q22}
 # how many of the oracle's rows each top-N query keeps, and the column it
 # orders by first
 TOP_N = {"q3": (10, 3), "q18": (100, 4)}

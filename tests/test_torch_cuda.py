@@ -552,3 +552,63 @@ def test_q22_and_string_filters_on_card_match_cpu(dev, plan):
     assert len(out["cpu"][0]) == 7
     for want, got in zip(out["cpu"], out[str(dev)]):
         assert tpch.rows_match(want, got)
+
+
+@pytest.mark.parametrize("how", ["left", "right", "full"])
+def test_outer_joins_on_card_match_cpu(dev, how):
+    """Left, right and full outer joins on double and string keys with
+    nulls, NaN and -0.0, streaming several batches (a full join's tail
+    after them), on the card and on the CPU: the same rows in the same
+    order."""
+    from spark_rapids_tpu_torch import TpuSession, col
+    n = 20_000
+
+    def table(seed, key, m):
+        r = np.random.default_rng(seed)
+        return {key: np.ma.masked_array(
+                    r.choice([0.0, -0.0, 1.5, np.nan, 2.0, 3.0, 4.0], m),
+                    mask=r.random(m) < 0.05),
+                key + "s": np.array(["a", "bb", "", "ccc", "dddd"])[
+                    r.integers(0, 5, m)],
+                key + "v": r.integers(0, 100, m)}
+    # the left side lacks key 4.0, so right rows go without a match too
+    left, right = table(11, "k", n), table(12, "j", n // 50)
+    left["k"] = np.ma.masked_array(np.where(left["k"].data == 4.0, 1.5,
+                                            left["k"].data),
+                                   mask=left["k"].mask)
+    rows = {}
+    for device in ("cpu", dev):
+        s = TpuSession({"spark.sql.autoBroadcastJoinThreshold": "-1",
+                        "spark.rapids.sql.reader.batchSizeRows": "7000"},
+                       device=device)
+        lt, rt = s.from_numpy(left), s.from_numpy(right)
+        on = (col("k") == col("j")) & (col("ks") == col("js"))
+        rows[str(device)] = lt.join(rt, on, how).collect()
+    assert len(rows["cpu"]) > 1000
+    norm = [[tuple("NaN" if x != x else x for x in r) for r in rows[d]]
+            for d in ("cpu", str(dev))]
+    assert norm[0] == norm[1]
+    lone = [r for r in norm[0] if (r[3] is None if how == "left"
+                                   else r[0] is None)]
+    assert lone
+
+
+@pytest.mark.parametrize("plan", ["default", "hash_joins"])
+def test_q13_and_outer_joins_on_card_match_cpu(dev, plan):
+    """TPC-H q13 (a left outer join, CaseWhen over its nullable side, two
+    aggregates) and tpch.OUTER_JOINS at SF0.01 with every 8th order, on
+    the card and on the CPU, over several probe batches."""
+    from spark_rapids_tpu_torch import TpuSession, tpch
+    t = tpch.generate(0.01)
+    t["orders"] = {k: v[::8] for k, v in t["orders"].items()}
+    conf = {"spark.rapids.sql.reader.batchSizeRows": "500",
+            **(_HASH_JOINS if plan == "hash_joins" else {})}
+    out = {}
+    for device in ("cpu", dev):
+        s = TpuSession(conf, device=device)
+        d = {n: s.from_numpy(v, tpch.SCHEMAS[n]) for n, v in t.items()}
+        out[str(device)] = [tpch.q13(d).collect()] + [
+            q(d).collect() for q, _ in tpch.OUTER_JOINS.values()]
+    assert out["cpu"][0] == tpch.oracle_q13(t)
+    for want, got in zip(out["cpu"], out[str(dev)]):
+        assert got and want == got

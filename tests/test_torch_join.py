@@ -5,7 +5,8 @@ tests/compare.py), and the two physical plans must hold the same join
 execs, of the same type, building the same side.  The JAX side runs on
 its CPU backend, as the tier-1 conftest forces; the port on
 `device="cpu"`, its kernels' plain versions.  Join shapes follow
-tests/test_join.py, restricted to the three join types the port has."""
+tests/test_join.py; the outer joins are in tests/test_torch_outer_join.py,
+which uses the helpers here."""
 import random
 
 import pytest
@@ -331,27 +332,49 @@ def test_limit(case):
         case, len(want))
 
 
-@pytest.mark.parametrize("case", ["left", "right", "full", "cross",
+def _exec_names(node):
+    return [type(node).__name__] + [n for c in node.children
+                                    for n in _exec_names(c)]
+
+
+@pytest.mark.parametrize("case", ["conditional_left", "conditional_right",
+                                  "conditional_full", "full_using", "cross",
                                   "no_equi_key", "partitioned"])
 def test_unported_joins_raise_at_planning(case):
+    """Joins the port does not plan raise NotImplementedError, naming the
+    case; where the JAX package plans the join for its CPU executor (an
+    outer join with a residual condition, a full USING join), its plan
+    holds a CpuJoinExec."""
     conf = dict(NO_BROADCAST)
     if case == "partitioned":  # a build side over 8 bytes partitions
         conf["spark.rapids.sql.tpu.join.partitioned.threshold"] = "8"
-    s = TpuSession(conf, device="cpu")
-    left = s.from_numpy({"k": [1, 2], "a": [3, 4]})
-    right = s.from_numpy({"k2": [1, 5], "b": [6, 7]})
-    on = pcol("k") == pcol("k2")
-    if case == "no_equi_key":
-        df, match = left.join(right, pcol("a") < pcol("b")), "equi-join keys"
-    elif case == "cross":
-        df, match = left.join(right, on, "cross"), "cross joins"
-    elif case == "partitioned":
-        df, match = left.join(right, on), \
-            "spark.rapids.sql.tpu.join.partitioned.enabled"
-    else:
-        df, match = left.join(right, on, case), f"{case} joins"
+    left = ({"k": [1, 2], "a": [3, 4]}, [("k", "long"), ("a", "long")])
+    right = ({"k2": [1, 5], "b": [6, 7]}, [("k2", "long"), ("b", "long")])
+    how = case.split("_")[-1]
+
+    def q(x):
+        lt, rt = x.table(left), x.table(right)
+        on = x.col("k") == x.col("k2")
+        if case == "no_equi_key":
+            return lt.join(rt, x.col("a") < x.col("b"))
+        if case == "cross":
+            return lt.join(rt, on, "cross")
+        if case == "partitioned":
+            return lt.join(rt, on)
+        if case == "full_using":
+            return lt.join(x.table((dict(right[0], k=right[0]["k2"]),
+                                    right[1] + [("k", "long")])), "k",
+                           "full")
+        return lt.join(rt, on & (x.col("a") < x.col("b")), how)
+    match = {"no_equi_key": "equi-join keys", "cross": "cross joins",
+             "partitioned": "spark.rapids.sql.tpu.join.partitioned.enabled",
+             "full_using": "full USING joins"}.get(
+                 case, f"conditional {how} joins")
     with pytest.raises(NotImplementedError, match=match):
-        df.physical_plan()
+        q(_port_api(conf)).physical_plan()
+    if case.startswith("conditional") or case == "full_using":
+        assert "CpuJoinExec" in _exec_names(q(_jax_api(conf))
+                                            .physical_plan())
 
 
 def test_hint_on_a_pruned_scan_is_lost_as_in_the_jax_package():

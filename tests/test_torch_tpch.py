@@ -1,8 +1,9 @@
-"""TPC-H q1, q6 and q18's inner lineitem aggregate, and q3, q4, q12 and
-q18 whole, through the JAX package's TpuSession and the port's, on the same
-SF0.01 tables (benchmarks/tpch/datagen.py), compared row for row under
-the rule of tests/compare.py; for the joins also the join execs of the
-two physical plans.  Both sessions allow float aggregation on the
+"""TPC-H q1, q6 and q18's inner lineitem aggregate, q3, q4, q12, q13,
+q18 and q22 whole, and outer joins of orders and customers, through the
+JAX package's TpuSession and the port's, on the same SF0.01 tables
+(benchmarks/tpch/datagen.py), compared row for row under the rule of
+tests/compare.py; for the joins also the join execs of the two physical
+plans.  Both sessions allow float aggregation on the
 device, so the JAX side runs its device aggregate rather than its CPU
 executor.
 
@@ -22,11 +23,13 @@ from benchmarks.tpch.schema import SCHEMAS as JAX_SCHEMAS  # noqa: E402
 from compare import assert_rows_equal  # noqa: E402
 from test_torch_join import _jax_rows as jax_table_rows  # noqa: E402
 from test_torch_join import join_nodes  # noqa: E402
+from test_torch_outer_join import plan_joins  # noqa: E402
 from spark_rapids_tpu.engine import TpuSession as JaxSession  # noqa: E402
 from spark_rapids_tpu.exec import aggregate as JA  # noqa: E402
 from spark_rapids_tpu.plan.logical import SortOrder as JSortOrder  # noqa: E402,E501
 from spark_rapids_tpu.plan.logical import col as jcol  # noqa: E402
 from spark_rapids_tpu.plan.logical import functions as JF  # noqa: E402
+from spark_rapids_tpu.plan.logical import lit as jlit  # noqa: E402
 from spark_rapids_tpu_torch import TpuSession, tpch  # noqa: E402
 from spark_rapids_tpu_torch import col as pcol  # noqa: E402
 from spark_rapids_tpu_torch import functions as PF  # noqa: E402
@@ -337,6 +340,109 @@ def test_q22_matches_numpy_oracle(port_tables_cut, plan):
     got, want = tpch.q22(d).collect(), tpch.oracle_q22(t)
     assert len(got) == 7
     assert tpch.rows_match(want, got)
+
+
+# --------------------------------------------------------------------------
+# q13 and the outer joins of orders and customers
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("plan", ["default", "hash_joins"])
+def test_q13_rows_and_plans_equal(join_tables, plan):
+    """q13 on every 8th order, where 422 customers have no order at all:
+    the left outer join's rows without a match reach the count."""
+    conf = dict(CONF, **(HASH_JOINS if plan == "hash_joins" else {}))
+    tables = {"customer": join_tables["customer"],
+              "orders": (_every_8th_order(join_tables["orders"][0]),
+                         join_tables["orders"][1])}
+    js = JaxSession(dict(conf))
+    jdf = QUERIES[13]({n: js.from_pydict(d, JAX_SCHEMAS[n])
+                       for n, (d, _) in tables.items()})
+    ps = TpuSession(dict(conf), device="cpu")
+    pdf = tpch.q13({n: ps.from_numpy(d, sch)
+                    for n, (d, sch) in tables.items()})
+    want, got = jax_table_rows(jdf), pdf.collect()
+    assert len(got) == 8 and 0 in [r[0] for r in got]
+    assert_rows_equal(want, got, ignore_order=False)
+    jn, pn = join_nodes(jdf.physical_plan()), join_nodes(pdf.physical_plan())
+    assert jn == pn and len(pn) == 1, (jn, pn)
+    assert pn[0][:2] == ("TpuHashJoinExec" if plan == "hash_joins"
+                         else "TpuBroadcastHashJoinExec", "left")
+    # the aggregate by c_custkey (1,500 customers, above the 1024
+    # buckets) takes the sort path in both packages
+    (jagg, pagg) = (_aggregates(p, cls)[1] for p, cls in (
+        (jdf.physical_plan(), JA.TpuHashAggregateExec),
+        (ps.last_plan, TpuHashAggregateExec)))
+    kk = jagg.kernel_key()
+    assert any(k[-len(kk):] == kk for k in JA._BUCKET_DIRTY_KEYS)
+    assert pagg.update_paths == {"bucket": 0, "sort": 1}
+
+
+def _aggregates(node, cls):
+    """The aggregate execs of a plan, depth first."""
+    return ([node] if isinstance(node, cls) else []) + [
+        a for c in node.children for a in _aggregates(c, cls)]
+
+
+def _jax_outer_1992(t, how):
+    """tpch.OUTER_JOINS' query in the JAX package's DataFrame API."""
+    orders = t["orders"].filter(jcol("o_orderdate") < "1993-01-01")
+    cust = t["customer"].filter(jcol("c_mktsegment") == "BUILDING")
+    return (orders.join(cust, on=jcol("o_custkey") == jcol("c_custkey"),
+                        how=how)
+            .agg(JF.count(jlit(1)).alias("rows"),
+                 JF.count(jcol("o_orderkey")).alias("with_order"),
+                 JF.count(jcol("c_custkey")).alias("with_customer")))
+
+
+@pytest.mark.parametrize("plan", ["default", "hash_joins"])
+@pytest.mark.parametrize("name", list(tpch.OUTER_JOINS))
+def test_outer_joins_rows_and_plans_equal(join_tables, name, plan):
+    conf = dict(CONF, **(HASH_JOINS if plan == "hash_joins" else {}))
+    js = JaxSession(dict(conf))
+    jdf = _jax_outer_1992(load_tables(js, sf=SF), name.split("_")[0])
+    ps = TpuSession(dict(conf), device="cpu")
+    pdf = tpch.OUTER_JOINS[name][0](
+        {n: ps.from_numpy(d, sch) for n, (d, sch) in join_tables.items()})
+    want, got = jax_table_rows(jdf), pdf.collect()
+    assert_rows_equal(want, got, ignore_order=False)
+    rows, with_order, with_customer = got[0]
+    # rows without a match on each preserved side
+    assert rows > with_order and (name == "right_outer_1992"
+                                  or rows > with_customer)
+    jn = plan_joins(jdf.physical_plan())
+    pn = plan_joins(pdf.physical_plan())
+    assert jn == pn and len(pn) == 1, (jn, pn)
+    if name == "right_outer_1992":  # builds the orders side, swapped
+        assert pn[0][1:2] == ("left",) and pn[0][3] \
+            and "o_orderkey" in pn[0][2]
+    else:  # builds the customers, never broadcast
+        assert pn[0][:2] == ("TpuHashJoinExec", "full") \
+            and "c_custkey" in pn[0][2]
+
+
+@pytest.mark.parametrize("plan", ["default", "hash_joins"])
+@pytest.mark.parametrize("name", ["q13"] + list(tpch.OUTER_JOINS))
+def test_q13_and_outer_joins_match_numpy_oracle(port_tables_cut, name,
+                                                plan):
+    """The port's own generator and oracles (what chip_smoke.py runs at
+    SF10), with small reader batches so the probe streams several
+    batches and a full join's tail follows them."""
+    t = port_tables_cut
+    s = TpuSession(dict(CONF, **(HASH_JOINS if plan == "hash_joins"
+                                 else {}), **{
+        "spark.rapids.sql.reader.batchSizeRows": "500"}), device="cpu")
+    d = {n: s.from_numpy(v, tpch.SCHEMAS[n]) for n, v in t.items()}
+    if name == "q13":
+        got, want = tpch.q13(d).collect(), tpch.oracle_q13(t)
+        assert 0 in [r[0] for r in want]  # customers without an order
+    else:
+        query, oracle = tpch.OUTER_JOINS[name]
+        got, want = query(d).collect(), oracle(t)
+        # rows without a match on each preserved side
+        rows, with_order, with_customer = want[0]
+        assert rows > with_order and (name == "right_outer_1992"
+                                      or rows > with_customer)
+    assert tpch.rows_match(want, got), (got, want)
 
 
 @pytest.mark.parametrize("name", list(tpch.STRING_FILTERS))
