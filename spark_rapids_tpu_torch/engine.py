@@ -1,5 +1,6 @@
 """Session and DataFrame API of the port (the slice of
-spark_rapids_tpu/engine.py that TPC-H q1, q3, q4, q6 and q18 use).
+spark_rapids_tpu/engine.py that its TPC-H queries use; rollup and cube
+are not ported).
 
     s = TpuSession({"spark.rapids.sql.variableFloatAgg.enabled": "true"})
     df = s.from_numpy({"k": np.array([1, 2, 1]), "v": np.array([.5, 1., 2.])})
@@ -24,6 +25,7 @@ from .config import TpuConf
 from .device import resolve_device
 from .exec.base import ExecContext, ExecNode
 from .exec.basic import DeviceToHostExec
+from .ops.aggregates import AGG_FUNCS
 from .plan import logical as L
 from .plan.logical import ColumnExpr, SortOrder, col, lit
 from .plan.physical import convert, plan_schema
@@ -199,5 +201,50 @@ class GroupedData:
         self.keys = keys
 
     def agg(self, *aggs) -> DataFrame:
-        return DataFrame(self.df.session, L.LogicalAggregate(
-            self.keys, list(aggs), self.df.plan))
+        """Aggregate.  An entry that computes over aggregates (e.g.
+        `sum(a) / sum(b)`) is split as Spark's analyzer splits it: each
+        aggregate in it becomes a leaf of the aggregate, named `_agg{i}`,
+        and the entry a projection over those leaves after it, under the
+        entry's own output name.  A plain list of aggregates stays one
+        aggregate node."""
+        leaf_aggs: List[ColumnExpr] = []
+        projections: List[ColumnExpr] = []
+        compound = False
+
+        def walk(e):
+            if not isinstance(e, ColumnExpr):
+                return e
+            if e.op in AGG_FUNCS:
+                name = f"_agg{len(leaf_aggs)}"
+                leaf_aggs.append(e.alias(name))
+                return col(name)
+
+            def sub(a):
+                if isinstance(a, ColumnExpr):
+                    return walk(a)
+                if isinstance(a, (list, tuple)):
+                    return type(a)(sub(x) for x in a)
+                return a
+            return ColumnExpr(e.op, tuple(sub(a) for a in e.args),
+                              alias=e._alias)
+
+        for e in aggs:
+            if isinstance(e, ColumnExpr) and e.op in AGG_FUNCS:
+                leaf_aggs.append(e)
+                projections.append(col(e.output_name))
+            else:
+                before = len(leaf_aggs)
+                rewritten = walk(e)
+                if len(leaf_aggs) == before:
+                    raise ValueError(
+                        f"aggregate expression {e!r} contains no aggregate "
+                        "function")
+                compound = True
+                projections.append(rewritten.alias(e.output_name))
+
+        agg_plan = L.LogicalAggregate(self.keys, leaf_aggs, self.df.plan)
+        if not compound:
+            return DataFrame(self.df.session, agg_plan)
+        key_cols = [col(k.output_name) for k in self.keys]
+        return DataFrame(self.df.session, L.LogicalProject(
+            key_cols + projections, agg_plan))

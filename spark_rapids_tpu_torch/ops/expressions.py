@@ -1,9 +1,11 @@
 """Bound expression trees evaluated a whole column at a time.
 
 The subset of spark_rapids_tpu/ops/expressions.py that the port's TPC-H
-queries use, plus the null and NaN family and the conditionals, with
-Spark's null semantics: a result is null when an input is null, except
-for Kleene And/Or, the null predicates, the conditionals and Coalesce.
+queries use: the arithmetic family (Divide, IntegralDivide, Remainder and
+Pmod add a null where the divisor is zero), the comparisons and Kleene
+logic, the null and NaN family and the conditionals, with Spark's null
+semantics: a result is null when an input is null, except for Kleene
+And/Or, the null predicates, the conditionals and Coalesce.
 Comparisons follow Spark's float order: -0.0 == 0.0, NaN == NaN, NaN
 greater than all.
 
@@ -154,10 +156,13 @@ class BinaryExpression(Expression):
         l = self.left.eval(batch)
         r = self.right.eval(batch)
         t = self.promoted_type.torch_dtype
-        data = self.do_op(l.data.to(t), r.data.to(t))
-        return Column(data, _all_valid(l, r), self.dtype).mask_invalid()
+        data, valid = self.do_op(l.data.to(t), r.data.to(t),
+                                 _all_valid(l, r))
+        return Column(data, valid, self.dtype).mask_invalid()
 
-    def do_op(self, l, r):
+    def do_op(self, l, r, valid):
+        """(data, valid) of the op over both sides' data, already in the
+        promoted type, and the rows where both sides are valid."""
         raise NotImplementedError
 
 
@@ -171,19 +176,137 @@ class _Unary(Expression):
         return self.child.dtype
 
 
+# --------------------------------------------------------------------------
+# arithmetic
+# --------------------------------------------------------------------------
+
 class Add(BinaryExpression):
-    def do_op(self, l, r):
-        return l + r
+    def do_op(self, l, r, valid):
+        return l + r, valid
 
 
 class Subtract(BinaryExpression):
-    def do_op(self, l, r):
-        return l - r
+    def do_op(self, l, r, valid):
+        return l - r, valid
 
 
 class Multiply(BinaryExpression):
-    def do_op(self, l, r):
-        return l * r
+    def do_op(self, l, r, valid):
+        return l * r, valid
+
+
+def _to_long(x: torch.Tensor) -> torch.Tensor:
+    """x as int64, a float converted as the JAX package converts it:
+    truncated, saturating at the int64 range, NaN to 0 (a plain torch
+    cast gives INT64_MIN there on the CPU and is undefined on the card)."""
+    if not x.is_floating_point():
+        return x.to(torch.int64)
+    big = x >= 2.0 ** 63
+    small = x < -2.0 ** 63
+    out = torch.where(big | small | torch.isnan(x), 0.0, x).to(torch.int64)
+    out = torch.where(big, torch.iinfo(torch.int64).max, out)
+    return torch.where(small, torch.iinfo(torch.int64).min, out)
+
+
+def _trunc_div(l, r):
+    """The JVM's truncating integer division, as the JAX package writes
+    it (the sign times the floor of the magnitudes, which wraps as it
+    does at the type's minimum).  `r` holds no zero."""
+    return torch.sign(l) * torch.sign(r) * torch.div(
+        torch.abs(l), torch.abs(r), rounding_mode="floor")
+
+
+def _trunc_mod(l, r):
+    """JVM %: the result has the dividend's sign."""
+    return l - r * _trunc_div(l, r)
+
+
+class Divide(BinaryExpression):
+    """Spark's `/`: always a double, null where the divisor is 0 or -0.0.
+    The divisor is made safe before dividing."""
+
+    @property
+    def dtype(self):
+        return DoubleType
+
+    def do_op(self, l, r, valid):
+        l, r = l.to(torch.float64), r.to(torch.float64)
+        nz = r != 0.0
+        return torch.where(nz, l, 1.0) / torch.where(nz, r, 1.0), valid & nz
+
+
+class IntegralDivide(BinaryExpression):
+    """Spark's `div`: a long, truncated toward zero, null where the
+    divisor is 0."""
+
+    @property
+    def dtype(self):
+        return LongType
+
+    def do_op(self, l, r, valid):
+        l, r = _to_long(l), _to_long(r)
+        nz = r != 0
+        return _trunc_div(l, torch.where(nz, r, 1)), valid & nz
+
+
+class Remainder(BinaryExpression):
+    """Spark's `%`: fmod for floats, the JVM's truncating remainder for
+    integers; null where the divisor is 0."""
+
+    def do_op(self, l, r, valid):
+        nz = r != 0
+        safe = torch.where(nz, r, 1)
+        if l.is_floating_point():
+            return torch.fmod(l, safe), valid & nz
+        return _trunc_mod(l, safe), valid & nz
+
+
+class Pmod(BinaryExpression):
+    """Spark's pmod: the remainder moved into the divisor's range when it
+    is negative; null where the divisor is 0."""
+
+    def do_op(self, l, r, valid):
+        nz = r != 0
+        safe = torch.where(nz, r, 1)
+        mod = torch.fmod if l.is_floating_point() else _trunc_mod
+        m = mod(l, safe)
+        return torch.where(m < 0, mod(m + safe, safe), m), valid & nz
+
+
+class _ArithUnary(_Unary):
+    """A unary op on the data; the child's validity, and its null slots
+    go through the op (-0.0 for a float UnaryMinus), as in the JAX
+    package."""
+
+    def __init__(self, child: Expression):
+        if child.dtype.is_string:
+            # the JAX package has no string layout for the result
+            raise TypeError(f"{type(self).__name__} of a string column")
+        super().__init__(child)
+
+    def eval(self, batch):
+        c = self.child.eval(batch)
+        return Column(self.do_op(c.data), c.valid, self.dtype)
+
+    def do_op(self, x):
+        raise NotImplementedError
+
+
+class UnaryMinus(_ArithUnary):
+    def do_op(self, x):
+        return -x
+
+
+class UnaryPositive(_ArithUnary):
+    def do_op(self, x):
+        return x
+
+
+class Abs(_ArithUnary):
+    """abs, which leaves an integer type's minimum as it is."""
+
+    def do_op(self, x):
+        return torch.abs(x)
 
 
 def _cmp_prep(l, r):
@@ -726,12 +849,15 @@ class Greatest(_ExtremeN):
 
 
 # the ops `resolve` builds from their resolved arguments alone (In,
-# CaseWhen, AtLeastNNonNulls, Least and Greatest take their own branches)
+# CaseWhen, AtLeastNNonNulls, Least and Greatest take their own branches).
+# UnaryPositive is left out, as the JAX package's resolve leaves it out
 EXPRESSIONS = {c.__name__: c for c in (
-    Add, Subtract, Multiply, EqualTo, LessThan, GreaterThan,
+    Add, Subtract, Multiply, Divide, IntegralDivide, Remainder, Pmod,
+    UnaryMinus, Abs, EqualTo, LessThan, GreaterThan,
     LessThanOrEqual, GreaterThanOrEqual, EqualNullSafe, And, Or, Not,
     IsNull, IsNotNull, IsNaN, Coalesce, NaNvl, NormalizeNaNAndZero,
     KnownFloatingPointNormalized)}
 COMPARISONS = ("EqualTo", "LessThan", "GreaterThan", "LessThanOrEqual",
                "GreaterThanOrEqual", "EqualNullSafe")
-ARITHMETIC = ("Add", "Subtract", "Multiply")
+ARITHMETIC = ("Add", "Subtract", "Multiply", "Divide", "IntegralDivide",
+              "Remainder", "Pmod")

@@ -1,5 +1,7 @@
 """Logical plan and the unresolved column DSL (port of the slice's part of
-spark_rapids_tpu/plan/logical.py): `col`, `lit`, the arithmetic,
+spark_rapids_tpu/plan/logical.py): `col`, `lit`, the arithmetic
+operators (`+ - * / %` and unary `-`; IntegralDivide and Pmod have no
+operator and are built as `ColumnExpr("Pmod", (a, b))`), `abs`, the
 comparison and boolean operators, `between`, `isin`, `is_null` and
 `is_not_null`, the aggregate functions sum, avg, count, min and max,
 `when`/`otherwise`, `coalesce`, `isnan`, `least` and `greatest`,
@@ -45,6 +47,18 @@ class ColumnExpr:
 
     def __rmul__(self, o):
         return self._bin("Multiply", o, flip=True)
+
+    def __truediv__(self, o):
+        return self._bin("Divide", o)
+
+    def __rtruediv__(self, o):
+        return self._bin("Divide", o, flip=True)
+
+    def __mod__(self, o):
+        return self._bin("Remainder", o)
+
+    def __neg__(self):
+        return ColumnExpr("UnaryMinus", (self,))
 
     def __eq__(self, o):  # type: ignore[override]
         return self._bin("EqualTo", o)
@@ -182,6 +196,10 @@ class functions:
     @staticmethod
     def coalesce(*exprs):
         return ColumnExpr("Coalesce", tuple(_wrap(e) for e in exprs))
+
+    @staticmethod
+    def abs(e):
+        return ColumnExpr("Abs", (_wrap(e),))
 
     @staticmethod
     def isnan(e):

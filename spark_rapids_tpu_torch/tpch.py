@@ -1,7 +1,8 @@
 """TPC-H for the port: a vectorised generator of the columns that q1,
-q3, q4, q6, q12, q13, q18 and q22 read (lineitem, orders and customer),
-the queries in the port's DataFrame API, string filters over o_comment,
-outer joins of orders and customers, and numpy oracles for them.
+q3, q4, q6, q12, q13, q14, q17, q18 and q22 read (lineitem, orders,
+customer and part), the queries in the port's DataFrame API, string
+filters over o_comment, outer joins of orders and customers, and numpy
+oracles for them.
 
 The generator draws from the distributions of the JAX package's
 benchmarks/tpch/datagen.py, with numpy's own generator seeded by `seed`:
@@ -16,12 +17,18 @@ the same shapes, key ranges and distributions, not the same rows.
     date 1-30 days after the ship date, quantity 1-50, price = quantity *
     U(900, 1100) rounded to cents, discount U(0, 0.10) and tax U(0, 0.08)
     rounded to cents, return flag A/N/R, line status F/O, ship mode
-    uniform over SHIPMODES;
+    uniform over SHIPMODES, part key uniform over the parts;
   * customer: ~150,000 * sf, c_custkey 1..n, c_name "Customer#%09d",
     market segment uniform over SEGMENTS, phone "NN-NNN-NNN-NNNN" whose
     NN is a nation key uniform over 0..24 plus 10, account balance
-    U(-999.99, 9999.99) rounded to cents.
+    U(-999.99, 9999.99) rounded to cents;
+  * part: max(20, 200,000 * sf), p_partkey 1..n, p_brand "Brand#XY" with
+    X and Y uniform over 1-5, p_type one of TYPES_1 x TYPES_2 x TYPES_3
+    and p_container one of CONTAINERS_1 x CONTAINERS_2, each word
+    uniform.
 Strings come as numpy byte arrays, built without a per-row Python loop.
+Columns added in later slices draw from seeded streams of their own, so
+the earlier columns keep their values.
 """
 from __future__ import annotations
 
@@ -52,9 +59,15 @@ SHIPMODES = ["REG AIR", "AIR", "RAIL", "SHIP", "TRUCK", "MAIL", "FOB"]
 WORDS = ["express", "special", "pending", "deposits", "packages", "regular",
          "requests", "accounts", "ironic", "final", "unusual", "Customer",
          "Complaints", "carefully", "quickly", "furiously", "slyly"]
+TYPES_1 = ["STANDARD", "SMALL", "MEDIUM", "LARGE", "ECONOMY", "PROMO"]
+TYPES_2 = ["ANODIZED", "BURNISHED", "PLATED", "POLISHED", "BRUSHED"]
+TYPES_3 = ["TIN", "NICKEL", "BRASS", "STEEL", "COPPER"]
+CONTAINERS_1 = ["SM", "LG", "MED", "JUMBO", "WRAP"]
+CONTAINERS_2 = ["CASE", "BOX", "BAG", "JAR", "PKG", "PACK", "CAN", "DRUM"]
 N_NATIONS = 25
 
 LINEITEM = Schema([StructField("l_orderkey", LongType),
+                   StructField("l_partkey", LongType),
                    StructField("l_quantity", DoubleType),
                    StructField("l_extendedprice", DoubleType),
                    StructField("l_discount", DoubleType),
@@ -77,7 +90,12 @@ CUSTOMER = Schema([StructField("c_custkey", LongType),
                    StructField("c_mktsegment", StringType),
                    StructField("c_phone", StringType),
                    StructField("c_acctbal", DoubleType)])
-SCHEMAS = {"lineitem": LINEITEM, "orders": ORDERS, "customer": CUSTOMER}
+PART = Schema([StructField("p_partkey", LongType),
+               StructField("p_brand", StringType),
+               StructField("p_type", StringType),
+               StructField("p_container", StringType)])
+SCHEMAS = {"lineitem": LINEITEM, "orders": ORDERS, "customer": CUSTOMER,
+           "part": PART}
 
 
 def _numbered(prefix: str, keys: np.ndarray, width: int) -> np.ndarray:
@@ -138,8 +156,38 @@ def _comments(rng: np.random.Generator, n: int) -> np.ndarray:
     return _as_bytes(out.reshape(n, width))
 
 
+def _joined(rng: np.random.Generator, n: int, *words: List[str]
+            ) -> np.ndarray:
+    """`n` strings, each one word drawn uniformly from every list in
+    `words`, joined by single spaces: a draw per list, then a lookup in
+    the table of every combination (the product of the lists' sizes, not
+    `n`)."""
+    combos = [""]
+    for ws in words:
+        combos = [f"{c} {w}" if c else w for c in combos for w in ws]
+    code = np.zeros(n, np.int64)
+    for ws in words:
+        code = code * len(ws) + rng.integers(0, len(ws), n)
+    return np.array(combos, dtype="S")[code]
+
+
+def _part(rng: np.random.Generator, n: int) -> Dict[str, np.ndarray]:
+    """The part columns q14 and q17 read: p_partkey 1..n, p_brand
+    "Brand#XY" with X and Y uniform over 1-5, p_type one of TYPES_1 x
+    TYPES_2 x TYPES_3, p_container one of CONTAINERS_1 x CONTAINERS_2."""
+    pre = np.frombuffer(b"Brand#", np.uint8)
+    brand = np.concatenate([np.broadcast_to(pre, (n, len(pre))),
+                            (rng.integers(1, 6, (n, 2)) + ord("0"))
+                            .astype(np.uint8)], axis=1)
+    return {"p_partkey": np.arange(1, n + 1, dtype=np.int64),
+            "p_brand": _as_bytes(brand),
+            "p_type": _joined(rng, n, TYPES_1, TYPES_2, TYPES_3),
+            "p_container": _joined(rng, n, CONTAINERS_1, CONTAINERS_2)}
+
+
 def generate(sf: float, seed: int = 42) -> Dict[str, Dict[str, np.ndarray]]:
-    """{table: {column: numpy array}} for lineitem, orders and customer."""
+    """{table: {column: numpy array}} for lineitem, orders, customer and
+    part."""
     rng = np.random.default_rng(seed)
     n_ord = max(100, int(1_500_000 * sf))
     o_date = rng.integers(START, END - 151, n_ord, dtype=np.int32)
@@ -194,7 +242,13 @@ def generate(sf: float, seed: int = 42) -> Dict[str, Dict[str, np.ndarray]]:
     customer["c_acctbal"] = np.round(rng4.uniform(-999.99, 9999.99, n_cust),
                                      2)
     orders["o_comment"] = _comments(rng4, n_ord)
-    return {"lineitem": lineitem, "orders": orders, "customer": customer}
+    # part and l_partkey (q14, q17) from a fifth
+    rng5 = np.random.default_rng([seed, 4])
+    n_part = max(20, int(200_000 * sf))
+    part = _part(rng5, n_part)
+    lineitem["l_partkey"] = rng5.integers(1, n_part + 1, n, dtype=np.int64)
+    return {"lineitem": lineitem, "orders": orders, "customer": customer,
+            "part": part}
 
 
 def generate_lineitem(sf: float, seed: int = 42) -> Dict[str, np.ndarray]:
@@ -203,8 +257,8 @@ def generate_lineitem(sf: float, seed: int = 42) -> Dict[str, np.ndarray]:
 
 
 # --------------------------------------------------------------------------
-# the queries (benchmarks/tpch/queries.py q1, q3, q4, q6, q12, q13, q18,
-# q22, and q18's inner lineitem aggregate)
+# the queries (benchmarks/tpch/queries.py q1, q3, q4, q6, q12, q13, q14,
+# q17, q18, q22, and q18's inner lineitem aggregate)
 # --------------------------------------------------------------------------
 
 def q1(li):
@@ -345,11 +399,40 @@ def q13(t):
                       SortOrder(col("c_count"), ascending=False)))
 
 
+def q14(t):
+    """TPC-H q14: the share of one month's discounted revenue that comes
+    from PROMO parts, in percent: a global aggregate divided by another."""
+    li = t["lineitem"].filter((col("l_shipdate") >= "1995-09-01")
+                              & (col("l_shipdate") < "1995-10-01"))
+    joined = li.join(t["part"], on=col("l_partkey") == col("p_partkey"))
+    disc = col("l_extendedprice") * (lit(1.0) - col("l_discount"))
+    promo = F.when(col("p_type").startswith("PROMO"), disc).otherwise(0.0)
+    return joined.agg(
+        ((F.sum(promo) * 100.0) / F.sum(disc)).alias("promo_revenue"))
+
+
+def q17(t):
+    """TPC-H q17: the yearly revenue lost on small orders of one brand and
+    container: the lines whose quantity is below a fifth of their part's
+    average (a grouped aggregate times a literal, joined back to the
+    lines), summed and divided by 7."""
+    part = t["part"].filter((col("p_brand") == "Brand#23")
+                            & (col("p_container") == "MED BOX"))
+    li = t["lineitem"].join(part, on=col("l_partkey") == col("p_partkey"))
+    avg_qty = (li.group_by(col("p_partkey"))
+               .agg((F.avg(col("l_quantity")) * 0.2).alias("limit_qty"))
+               .select(col("p_partkey").alias("ak"), col("limit_qty")))
+    return (li.join(avg_qty, on=col("p_partkey") == col("ak"))
+            .filter(col("l_quantity") < col("limit_qty"))
+            .agg((F.sum(col("l_extendedprice")) / 7.0)
+                 .alias("avg_yearly")))
+
+
 # the lineitem-only queries take the lineitem DataFrame, the joins a dict
 # of DataFrames by table name
 QUERIES = {"q1": q1, "q6": q6, "q18_inner": q18_inner}
-JOIN_QUERIES = {"q3": q3, "q4": q4, "q12": q12, "q13": q13, "q18": q18,
-                "q22": q22}
+JOIN_QUERIES = {"q3": q3, "q4": q4, "q12": q12, "q13": q13, "q14": q14,
+                "q17": q17, "q18": q18, "q22": q22}
 
 
 # --------------------------------------------------------------------------
@@ -592,9 +675,43 @@ def oracle_q22(t) -> List[tuple]:
             for k, n, v in zip(codes, count, total)]
 
 
+def oracle_q14(t) -> List[tuple]:
+    li, p = t["lineitem"], t["part"]
+    sd = li["l_shipdate"]
+    m = np.flatnonzero((sd >= days("1995-09-01")) & (sd < days("1995-10-01")))
+    m = m[_in_keys(p["p_partkey"], li["l_partkey"][m])]
+    if not len(m):
+        return [(None,)]
+    disc = li["l_extendedprice"][m] * (1.0 - li["l_discount"][m])
+    ptype = p["p_type"][_row_of(p["p_partkey"], li["l_partkey"][m])]
+    promo = np.where(np.char.startswith(ptype, b"PROMO"), disc, 0.0)
+    return [(float(promo.sum() * 100.0 / disc.sum()),)]
+
+
+def oracle_q17(t) -> List[tuple]:
+    """q17's one value.  Every quantity is a whole number, so each part's
+    quantity sum is exact in any order, and its average (sum / count, as
+    the aggregate finalizes it) and limit are the same doubles on every
+    path: the comparison keeps the same lines."""
+    li, p = t["lineitem"], t["part"]
+    keys = p["p_partkey"][(p["p_brand"] == b"Brand#23")
+                          & (p["p_container"] == b"MED BOX")]
+    m = np.flatnonzero(_in_keys(keys, li["l_partkey"]))
+    if not len(m):
+        return [(None,)]
+    qty = li["l_quantity"][m]
+    parts, inv = np.unique(li["l_partkey"][m], return_inverse=True)
+    avg = np.bincount(inv, weights=qty) / np.bincount(inv)
+    keep = qty < (avg * 0.2)[inv]
+    if not keep.any():
+        return [(None,)]
+    return [(float(li["l_extendedprice"][m][keep].sum() / 7.0),)]
+
+
 ORACLES = {"q1": oracle_q1, "q6": oracle_q6, "q18_inner": oracle_q18_inner,
            "q3": oracle_q3, "q4": oracle_q4, "q12": oracle_q12,
-           "q13": oracle_q13, "q18": oracle_q18, "q22": oracle_q22}
+           "q13": oracle_q13, "q14": oracle_q14, "q17": oracle_q17,
+           "q18": oracle_q18, "q22": oracle_q22}
 # how many of the oracle's rows each top-N query keeps, and the column it
 # orders by first
 TOP_N = {"q3": (10, 3), "q18": (100, 4)}

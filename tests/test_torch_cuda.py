@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+import test_torch_arithmetic as XA
 import test_torch_expressions as X
 import test_torch_strings as XS
 from spark_rapids_tpu_torch.ops import kernels as K
@@ -612,3 +613,64 @@ def test_q13_and_outer_joins_on_card_match_cpu(dev, plan):
     assert out["cpu"][0] == tpch.oracle_q13(t)
     for want, got in zip(out["cpu"], out[str(dev)]):
         assert got and want == got
+
+
+@pytest.mark.parametrize("case", list(XA.CASES))
+def test_arithmetic_on_card_matches_cpu(dev, case):
+    """Each arithmetic case of tests/test_torch_arithmetic.py (the edge
+    rows: zero, NaN and infinite divisors, INT_MIN and -1) on the card
+    and on the CPU: the same type and null mask, the same bits on every
+    row (any NaN equal to any NaN)."""
+    data = XA.table()
+    want = XA.port_eval(data, case, "cpu")
+    got = XA.port_eval(data, case, dev)
+    assert got[0] == want[0]
+    assert np.array_equal(got[2], want[2])
+    assert XA.same_bits(got[1], want[1])
+
+
+def _nan_rows(rows):
+    """Rows in key order with NaN spelled "NaN", for tpch.rows_match."""
+    return sorted((tuple("NaN" if x != x else x for x in r) for r in rows),
+                  key=repr)
+
+
+@pytest.mark.parametrize("case", XA.AGG_CASES)
+def test_agg_over_aggregates_on_card_matches_cpu(dev, case):
+    """agg entries over aggregates (the split into an aggregate and a
+    projection), grouped and global, on the card and on the CPU: the same
+    rows, floats within rel 1e-9 (sums taken in another order)."""
+    from spark_rapids_tpu_torch import TpuSession, tpch
+    data = XA.table()
+    out = {}
+    for device in ("cpu", dev):
+        df = XA.port_df(TpuSession(dict(XA.CONF), device=device), data)
+        entries = XA._agg_entries(XA.PORT)[case]
+        out[str(device)] = [_nan_rows(df.group_by("g").agg(*entries)
+                                      .collect()),
+                            _nan_rows(df.agg(*entries).collect())]
+    for want, got in zip(out["cpu"], out[str(dev)]):
+        assert len(got) == len(want) > 0
+        assert tpch.rows_match(want, got), (want, got)
+
+
+@pytest.mark.parametrize("plan", ["default", "hash_joins"])
+def test_q14_and_q17_on_card_match_cpu(dev, plan):
+    """TPC-H q14 (a join to part, CaseWhen over StartsWith, a global
+    aggregate divided by another) and q17 (a grouped average times a
+    literal joined back, a second join) at SF0.01 on the card and on the
+    CPU, over several probe batches, each equal to its numpy oracle."""
+    from spark_rapids_tpu_torch import TpuSession, tpch
+    t = tpch.generate(0.01)
+    conf = {"spark.rapids.sql.variableFloatAgg.enabled": "true",
+            "spark.rapids.sql.reader.batchSizeRows": "20000",
+            **(_HASH_JOINS if plan == "hash_joins" else {})}
+    out = {}
+    for device in ("cpu", dev):
+        s = TpuSession(conf, device=device)
+        d = {n: s.from_numpy(v, tpch.SCHEMAS[n]) for n, v in t.items()}
+        out[str(device)] = [tpch.q14(d).collect(), tpch.q17(d).collect()]
+    for name, want, got in zip(("q14", "q17"), out["cpu"], out[str(dev)]):
+        assert got[0][0] is not None
+        assert tpch.rows_match(want, got), name
+        assert tpch.rows_match(tpch.ORACLES[name](t), got), name

@@ -438,17 +438,47 @@ def test_a_cast_the_port_lacks_raises_not_implemented_at_planning(case):
 
 @pytest.mark.parametrize("op", ["Divide", "IntegralDivide", "Remainder",
                                 "Pmod"])
-def test_arithmetic_outside_the_slice_raises_at_planning(op, port_table):
-    df = port_table.select(PL.ColumnExpr(op, (PL.col("i"), PL.col("i2"))))
-    with pytest.raises(NotImplementedError, match=op):
-        df.physical_plan()
+def test_arithmetic_on_a_string_column_raises_at_planning(op, jax_df,
+                                                          port_table):
+    """The JAX package casts a string side to the other side's type and
+    runs the op; the port lacks that cast and raises when the plan is
+    made."""
+    def build(a):
+        return a.E(op, (a.col("s"), a.col("i"))).alias("x")
+    assert len(jax_df.select(build(_jax_api())).collect()) == N
+    with pytest.raises(NotImplementedError, match="cast"):
+        port_table.select(build(PORT)).physical_plan()
 
 
-def test_expression_over_an_aggregate_raises_at_planning(port_table):
-    F = PL.functions
-    df = port_table.group_by("b").agg((F.sum(PL.col("i")) * 2).alias("x"))
+@pytest.mark.parametrize("mixed", [False, True], ids=["alone", "mixed"])
+@pytest.mark.parametrize("grouped", [True, False], ids=["grouped", "global"])
+def test_an_agg_entry_with_no_aggregate_raises_value_error(grouped, mixed,
+                                                           jax_df,
+                                                           port_table):
+    """An agg entry must compute over an aggregate: a plain expression,
+    alone or beside an aggregate, raises ValueError in both packages when
+    the DataFrame is made, with the same message."""
+    msgs = []
+    for a, df in ((_jax_api(), jax_df), (PORT, port_table)):
+        g = df.group_by("b") if grouped else df
+        entries = ([a.F.sum(a.col("i"))] if mixed else []) \
+            + [(a.col("i") * 2).alias("x")]
+        with pytest.raises(ValueError, match="contains no aggregate") as e:
+            g.agg(*entries)
+        msgs.append(str(e.value).split(" contains")[1])
+    assert msgs[0] == msgs[1]
+
+
+def test_a_hand_built_aggregate_of_a_plain_expression_raises_at_planning(
+        port_table):
+    """agg() splits an entry over aggregates into an aggregate and a
+    projection; a LogicalAggregate built by hand with a plain expression
+    in its list still raises at planning."""
+    df = port_table.group_by("b").agg(PL.functions.sum(PL.col("i")))
+    bad = PL.LogicalAggregate(df.plan.grouping, [PL.col("i") * 2],
+                              df.plan.children[0])
     with pytest.raises(NotImplementedError, match="not an aggregate"):
-        df.physical_plan()
+        type(df)(df.session, bad).physical_plan()
 
 
 LITERALS = [None, True, False, 0, 1, -2 ** 31, 2 ** 31 - 1, 2 ** 31,
