@@ -20,17 +20,23 @@ Phases, each printing a line:
      PyTorch library call where one computes the same function, and
      beside its bound;
   3. queries: TPC-H lineitem (60 M rows, one 2^26-row batch), orders
-     (15 M), customer (1.5 M) and part (2 M) at SF10, generated on the
-     host from seed 42; q1, q6 and q18's inner lineitem aggregate, then
-     q3, q4, q12, q13, q14, q17, q18 and q22 whole (inner, semi, anti and
-     left outer equi-joins, limits; q12's In and CaseWhen over string
-     columns; q13's Contains filter over o_comment, a left outer join
-     building the 15 M orders it keeps, o_comment included, and an
-     aggregate over 1.5 M customers; q14's join of one month's lines to
-     the 2 M parts and a global sum divided by another; q17's grouped
-     average times 0.2 over the lines of ~2,000 parts, joined back to
-     them; q22's Substring of c_phone, a collected average and a
-     left_anti join building all 15 M orders), through
+     (15 M), customer (1.5 M), part (2 M), supplier (100 k), nation and
+     region at SF10, generated on the host from seed 42; q1, q6 and q18's
+     inner lineitem aggregate, then q3, q4, q12, q13, q14, q17, q18, q22,
+     q5, q10, q15, q19 and q21 whole (inner, semi, anti and left outer
+     equi-joins, limits; q12's In and CaseWhen over string columns; q13's
+     Contains filter over o_comment, a left outer join building the 15 M
+     orders it keeps, o_comment included, and an aggregate over 1.5 M
+     customers; q14's join of one month's lines to the 2 M parts and a
+     global sum divided by another; q17's grouped average times 0.2 over
+     the lines of ~2,000 parts, joined back to them; q22's Substring of
+     c_phone, a collected average and a left_anti join building all 15 M
+     orders; q5's chain of six tables ending in a join on two keys;
+     q10's aggregate by seven keys, five of them strings, and its top
+     20; q15's per-supplier aggregate and the maximum collected from
+     it; q19's OR of three conjunctions of In, between and string
+     equality over a join to part; q21's semi join of all the lines,
+     four aggregates in two levels and the joins back), through
      TpuSession(device="cuda"), each compared with a numpy oracle.  The
      session sets spark.rapids.sql.tpu.join.partitioned.enabled=false: at
      SF10 the JAX package's rules partition every one of these joins
@@ -38,7 +44,8 @@ Phases, each printing a line:
      exchange yet, so each join builds its whole right side as one batch.
      For each query: the plan's join execs (type, build side, broadcast
      or not, swapped or not), the update path of each aggregate, the
-     kernel launches of its first run, the warm median of 3, the device
+     kernel launches of its first run, in all and per kernel shape
+     (`shape_launches`), the warm median of 3, the device
      busy share and the costliest kernels of one more warm run under
      torch.profiler, and the device bytes held before its first run (the
      tables) and at its peak; for q13 also its rows (about 30 (c_count,
@@ -46,14 +53,16 @@ Phases, each printing a line:
      reach the left outer join's unmatched path.  The launch counts of
      the first runs show the queries went through all three kernels (K3
      in every hash-join build, counted around the build itself, and K1,
-     K2 and K3 in the sort-path aggregates of q13, q17 and q18), and
-     every shape a kernel was launched at there that phase 2 did not
-     cover is held against the plain version too;
+     K2 and K3 in the sort-path aggregates of q10, q13, q15, q17, q18 and
+     q21), and every shape a kernel was launched at there, or in phases
+     4 and 5, that phase 2 did not cover is held against the plain
+     version too, after phase 5;
   4. string filters: count(*) of the orders whose o_comment (2^24 rows of
      up to 64 bytes) passes each of tpch.STRING_FILTERS (Contains, Like,
      StartsWith, EndsWith, Substring), each against its numpy oracle,
      with the kernel launches of its first run (counts set to 0 before
-     it), the warm median of 3, the busy share and the peak device bytes;
+     it; in all and per shape), the warm median of 3, the busy share
+     and the peak device bytes;
   5. outer joins: each of tpch.OUTER_JOINS (1992's orders and the
      BUILDING customers: a right outer join, planned as a left outer
      join building the orders, and a full outer join building the
@@ -322,19 +331,21 @@ def run_queries(tables: dict, device: str = "cuda") -> tuple:
     first = {}
     for name, q in queries.items():
         before = K.launch_counts()
+        before_shapes = shape_launches()
         torch.cuda.reset_peak_memory_stats()
         resident = torch.cuda.memory_allocated()
         t0 = time.perf_counter()
         got = q().collect()
         ms = (time.perf_counter() - t0) * 1e3
         own = {k: c - before[k] for k, c in K.launch_counts().items()}
-        first[name] = (ms, got, _update_paths(s.last_plan), own,
+        first[name] = (ms, got, _update_paths(s.last_plan),
+                       (own, shape_launches(before_shapes)),
                        join_nodes(s.last_plan),
                        (resident, torch.cuda.max_memory_allocated()))
     launches = K.launch_counts()
-    shapes = [(k.__name__, shape) for k in K.KERNELS
-              for shape in sorted(k.shapes, key=lambda s: (-s[0], str(s)))]
-    for name, (ms, got, paths, own, joins, mem) in first.items():
+    shapes = launched_shapes()
+    for name, (ms, got, paths, (own, own_shapes), joins, mem) in \
+            first.items():
         oracle = tpch.ORACLES[name]
         want = oracle(tables["lineitem"]) if name in tpch.QUERIES \
             else oracle(tables)
@@ -350,6 +361,7 @@ def run_queries(tables: dict, device: str = "cuda") -> tuple:
             "joins": joins, "first_ms": ms, "warm_ms": warm,
             "warm_median_ms": statistics.median(warm),
             "agg_update_paths": paths, "launches": own,
+            "shape_launches": own_shapes,
             "resident_device_bytes": mem[0], "peak_device_bytes": mem[1],
             "profile": profile_query(queries[name]),
             **({"result": [[int(v) for v in r] for r in got]}
@@ -364,10 +376,11 @@ def run_queries(tables: dict, device: str = "cuda") -> tuple:
         if unsorted:
             raise AssertionError(f"{name}: hash-join builds that launched "
                                  f"no K3: {unsorted}")
-    for name in ("q13", "q17", "q18"):  # they aggregate on the sort path
-        if not all(first[name][3].values()):
+    # they aggregate on the sort path
+    for name in ("q10", "q13", "q15", "q17", "q18", "q21"):
+        if not all(first[name][3][0].values()):
             raise AssertionError(f"{name} did not launch every kernel: "
-                                 f"{first[name][3]}")
+                                 f"{first[name][3][0]}")
     print("launches in the query phase " + json.dumps(launches), flush=True)
     print("shapes launched in the query phase "
           + json.dumps([[k, [str(x) for x in s]] for k, s in shapes]),
@@ -379,11 +392,33 @@ def run_queries(tables: dict, device: str = "cuda") -> tuple:
     return launches, shapes, dfs
 
 
+def shape_launches(before: list = ()) -> list:
+    """[kernel, shape, launches] of every kernel shape launched since the
+    last reset, less the launches in `before` (an earlier reading)."""
+    seen = {(k, tuple(sh)): c for k, sh, c in before}
+    out = []
+    for k in K.KERNELS:
+        for shape, c in sorted(k.shapes.items(), key=str):
+            shape = [str(x) for x in shape]
+            c -= seen.get((k.__name__, tuple(shape)), 0)
+            if c:
+                out.append([k.__name__, shape, c])
+    return out
+
+
+def launched_shapes() -> list:
+    """(kernel name, shape) of every shape launched since the last reset,
+    the longest first."""
+    return [(k.__name__, shape) for k in K.KERNELS
+            for shape in sorted(k.shapes, key=lambda s: (-s[0], str(s)))]
+
+
 def measure(q) -> tuple:
     """One DataFrame `q()` on the card: its first run between a
     launch-count reset and a read, then the warm median of REPS and one
     profiled run.  Returns (the first run's rows and DataFrame, the
-    numbers to print)."""
+    numbers to print, the (kernel, shape) pairs the first run
+    launched)."""
     K.reset_launches()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -391,6 +426,8 @@ def measure(q) -> tuple:
     got = df.collect()
     ms = (time.perf_counter() - t0) * 1e3
     launches = K.launch_counts()
+    shapes = shape_launches()
+    launched = launched_shapes()
     peak = torch.cuda.max_memory_allocated()
     warm = []
     for _ in range(REPS):
@@ -399,16 +436,20 @@ def measure(q) -> tuple:
         warm.append((time.perf_counter() - t0) * 1e3)
     return got, df, {"first_ms": ms, "warm_ms": warm,
                      "warm_median_ms": statistics.median(warm),
-                     "launches": launches, "peak_device_bytes": peak,
-                     "profile": profile_query(q)}
+                     "launches": launches, "shape_launches": shapes,
+                     "peak_device_bytes": peak,
+                     "profile": profile_query(q)}, launched
 
 
-def run_string_filters(orders_df, orders: dict) -> None:
+def run_string_filters(orders_df, orders: dict) -> list:
     """Each string filter over o_comment on the card against its numpy
-    oracle (`measure`)."""
+    oracle (`measure`); returns the (kernel, shape) pairs they
+    launched."""
+    shapes = []
     for name in tpch.STRING_FILTERS:
-        got, _, numbers = measure(
+        got, _, numbers, launched = measure(
             lambda name=name: tpch.string_filter(orders_df, name))
+        shapes += launched
         want = tpch.oracle_string_filter(orders, name)
         print("filter " + json.dumps({"filter": name, "count": got,
                                       "oracle": want, **numbers}),
@@ -416,13 +457,17 @@ def run_string_filters(orders_df, orders: dict) -> None:
         if got != want:
             raise AssertionError(f"string filter {name}: {got} against the "
                                  f"numpy oracle's {want}")
+    return shapes
 
 
-def run_outer_joins(dfs: dict, tables: dict) -> None:
+def run_outer_joins(dfs: dict, tables: dict) -> list:
     """Each outer join of tpch.OUTER_JOINS on the card against its numpy
-    oracle (`measure`), with its join execs; each build must launch K3."""
+    oracle (`measure`), with its join execs; each build must launch K3.
+    Returns the (kernel, shape) pairs they launched."""
+    shapes = []
     for name, (query, oracle) in tpch.OUTER_JOINS.items():
-        got, df, numbers = measure(lambda query=query: query(dfs))
+        got, df, numbers, launched = measure(lambda query=query: query(dfs))
+        shapes += launched
         joins = join_nodes(df.session.last_plan)
         want = oracle(tables)
         print("outer_join " + json.dumps({
@@ -435,6 +480,7 @@ def run_outer_joins(dfs: dict, tables: dict) -> None:
                 or not numbers["launches"]["sort_words"]:
             raise AssertionError(f"outer join {name}: a build that "
                                  f"launched no K3: {joins} {numbers}")
+    return shapes
 
 
 def join_nodes(node, swapped: bool = False) -> list:
@@ -509,14 +555,15 @@ def main() -> int:
     check_kernels(gen, dev, checked, report)
     torch.cuda.empty_cache()
     launches, shapes, dfs = run_queries(tables)
-    run_string_filters(dfs["orders"], tables["orders"])
-    run_outer_joins(dfs, tables)
+    shapes += run_string_filters(dfs["orders"], tables["orders"])
+    shapes += run_outer_joins(dfs, tables)
     del dfs
     torch.cuda.empty_cache()
+    shapes = list(dict.fromkeys(shapes))
     rest = [ks for ks in shapes if ks not in checked]
-    print(f"kernels: {len(shapes) - len(rest)} of the query phase's "
-          f"{len(shapes)} launch shapes were checked in phase 2; checking "
-          f"the other {len(rest)}", flush=True)
+    print(f"kernels: {len(shapes) - len(rest)} of the {len(shapes)} shapes "
+          f"launched by the queries, filters and outer joins were checked "
+          f"in phase 2; checking the other {len(rest)}", flush=True)
     check_kernels(gen, dev, rest, report)
 
     kernels = []

@@ -3,9 +3,10 @@ and the build that turns `csrc/*.cu` into shared libraries.
 
 Each wrapper takes the plain version for a tensor that lies on the CPU
 and launches its CUDA kernel for a tensor on the card; there is no other
-path.  Every launch adds one to the wrapper's `launches` count and notes
-its shape (length, dtype, and the op or bit range; for K1 the length and
-each column's (dtype, op)) in the wrapper's `shapes` set.  Each wrapper
+path.  Every launch adds one to the wrapper's `launches` count and to
+its shape's count (length, dtype, and the op or bit range; for K1 the
+length and each column's (dtype, op)) in the wrapper's `shapes`
+Counter.  Each wrapper
 also names its `source` under csrc/ and the TPU kernel it `replaces`.
 
   * K1 `seg_scan` (csrc/seg_scan.cu) replaces pallas_kernels.seg_agg_1d:
@@ -26,6 +27,7 @@ rebuilt.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 import hashlib
@@ -150,7 +152,7 @@ def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
 def _kernel(fn, lib: str, replaces: str):
     """Mark `fn` as the wrapper of the kernel in _LIBS[lib]."""
     fn.launches = 0
-    fn.shapes = set()
+    fn.shapes = collections.Counter()
     fn.source = os.path.relpath(os.path.join(CSRC, _LIBS[lib][0]),
                                 os.path.dirname(_PKG))
     fn.replaces = replaces
@@ -204,8 +206,7 @@ def cumsum(v: torch.Tensor) -> torch.Tensor:
         _check(_func("cumsum")(v.data_ptr(), out.data_ptr(),
                                _ptr(scratch), n, v.element_size(),
                                _stream(v)), "cumsum")
-    cumsum.launches += 1
-    cumsum.shapes.add((n, v.dtype))
+    _count(cumsum, (n, v.dtype))
     return out
 
 
@@ -291,8 +292,7 @@ def seg_scan(gid: torch.Tensor, vals: Sequence[torch.Tensor],
             (_I * k)(*[_SEG_DTYPES[v.dtype] for v in vals]),
             (_I * k)(*[SEG_OPS.index(op) for op in ops]), k, _ptr(scratch),
             n, _stream(gid)), "seg_scan")
-    seg_scan.launches += 1
-    seg_scan.shapes.add((n, tuple((v.dtype, op) for v, op in zip(vals, ops))))
+    _count(seg_scan, (n, tuple((v.dtype, op) for v, op in zip(vals, ops))))
     return outs
 
 
@@ -339,8 +339,7 @@ def sort_words(words: torch.Tensor,
         _check(_func("radix_sort")(words.data_ptr(), out.data_ptr(),
                                    _ptr(scratch), n, lo, hi,
                                    _stream(words)), "sort_words")
-    sort_words.launches += 1
-    sort_words.shapes.add((n, words.dtype, lo, hi))
+    _count(sort_words, (n, words.dtype, lo, hi))
     return out
 
 
@@ -348,6 +347,12 @@ _kernel(sort_words, "radix_sort",
         "spark_rapids_tpu/ops/pallas_kernels.py:262")
 
 KERNELS = (seg_scan, cumsum, sort_words)
+
+
+def _count(fn, shape: tuple) -> None:
+    """One launch of `fn`'s kernel at `shape`."""
+    fn.launches += 1
+    fn.shapes[shape] += 1
 
 
 def reset_launches() -> None:

@@ -1,8 +1,8 @@
 """TPC-H for the port: a vectorised generator of the columns that q1,
-q3, q4, q6, q12, q13, q14, q17, q18 and q22 read (lineitem, orders,
-customer and part), the queries in the port's DataFrame API, string
-filters over o_comment, outer joins of orders and customers, and numpy
-oracles for them.
+q3, q4, q5, q6, q10, q12, q13, q14, q15, q17, q18, q19, q21 and q22 read
+(lineitem, orders, customer, part, supplier, nation and region), the
+queries in the port's DataFrame API, string filters over o_comment,
+outer joins of orders and customers, and numpy oracles for them.
 
 The generator draws from the distributions of the JAX package's
 benchmarks/tpch/datagen.py, with numpy's own generator seeded by `seed`:
@@ -11,21 +11,28 @@ the same shapes, key ranges and distributions, not the same rows.
     customers, order date uniform in [1992-01-01, 1998-08-02 - 151 days),
     priority uniform over PRIORITIES, ship priority 0, total price
     U(900, 500000) rounded to cents, comment 2-5 of WORDS joined by
-    spaces;
+    spaces, status uniform over F, O and P;
   * lineitem: 1-7 lines per order (~6,000,000 * sf rows), ship date 1-121
     days after the order date, commit date 30-90 days after it, receipt
     date 1-30 days after the ship date, quantity 1-50, price = quantity *
     U(900, 1100) rounded to cents, discount U(0, 0.10) and tax U(0, 0.08)
     rounded to cents, return flag A/N/R, line status F/O, ship mode
-    uniform over SHIPMODES, part key uniform over the parts;
+    uniform over SHIPMODES, ship instruction uniform over INSTRUCTS, part
+    key uniform over the parts, supplier key uniform over the suppliers;
   * customer: ~150,000 * sf, c_custkey 1..n, c_name "Customer#%09d",
-    market segment uniform over SEGMENTS, phone "NN-NNN-NNN-NNNN" whose
-    NN is a nation key uniform over 0..24 plus 10, account balance
-    U(-999.99, 9999.99) rounded to cents;
+    c_address "caddr {i}" (i from 0), market segment uniform over
+    SEGMENTS, phone "NN-NNN-NNN-NNNN" whose NN is a nation key uniform
+    over 0..24 plus 10 (c_nationkey is that key), account balance
+    U(-999.99, 9999.99) rounded to cents, comment as the orders';
   * part: max(20, 200,000 * sf), p_partkey 1..n, p_brand "Brand#XY" with
     X and Y uniform over 1-5, p_type one of TYPES_1 x TYPES_2 x TYPES_3
     and p_container one of CONTAINERS_1 x CONTAINERS_2, each word
-    uniform.
+    uniform, p_size uniform over 1-50;
+  * supplier: max(10, 10,000 * sf), s_suppkey 1..n, s_name
+    "Supplier#%09d", s_address "addr {i}" (i from 0), s_nationkey uniform
+    over 0..24, s_phone as the customers' with NN = s_nationkey + 10;
+  * nation and region: the 25 NATIONS, each in its NATION_REGION, and
+    the 5 REGIONS.
 Strings come as numpy byte arrays, built without a per-row Python loop.
 Columns added in later slices draw from seeded streams of their own, so
 the earlier columns keep their values.
@@ -64,7 +71,16 @@ TYPES_2 = ["ANODIZED", "BURNISHED", "PLATED", "POLISHED", "BRUSHED"]
 TYPES_3 = ["TIN", "NICKEL", "BRASS", "STEEL", "COPPER"]
 CONTAINERS_1 = ["SM", "LG", "MED", "JUMBO", "WRAP"]
 CONTAINERS_2 = ["CASE", "BOX", "BAG", "JAR", "PKG", "PACK", "CAN", "DRUM"]
-N_NATIONS = 25
+REGIONS = ["AFRICA", "AMERICA", "ASIA", "EUROPE", "MIDDLE EAST"]
+NATIONS = ["ALGERIA", "ARGENTINA", "BRAZIL", "CANADA", "EGYPT", "ETHIOPIA",
+           "FRANCE", "GERMANY", "INDIA", "INDONESIA", "IRAN", "IRAQ",
+           "JAPAN", "JORDAN", "KENYA", "MOROCCO", "MOZAMBIQUE", "PERU",
+           "CHINA", "ROMANIA", "SAUDI ARABIA", "VIETNAM", "RUSSIA",
+           "UNITED KINGDOM", "UNITED STATES"]
+NATION_REGION = [0, 1, 1, 1, 4, 0, 3, 3, 2, 2, 4, 4, 2, 4, 0, 0, 0, 1, 2, 3,
+                 4, 2, 3, 3, 1]
+INSTRUCTS = ["DELIVER IN PERSON", "COLLECT COD", "NONE", "TAKE BACK RETURN"]
+N_NATIONS = len(NATIONS)
 
 LINEITEM = Schema([StructField("l_orderkey", LongType),
                    StructField("l_partkey", LongType),
@@ -77,25 +93,43 @@ LINEITEM = Schema([StructField("l_orderkey", LongType),
                    StructField("l_shipdate", DateType),
                    StructField("l_commitdate", DateType),
                    StructField("l_receiptdate", DateType),
-                   StructField("l_shipmode", StringType)])
+                   StructField("l_shipmode", StringType),
+                   StructField("l_suppkey", LongType),
+                   StructField("l_shipinstruct", StringType)])
 ORDERS = Schema([StructField("o_orderkey", LongType),
                  StructField("o_custkey", LongType),
                  StructField("o_totalprice", DoubleType),
                  StructField("o_orderdate", DateType),
                  StructField("o_orderpriority", StringType),
                  StructField("o_shippriority", LongType),
-                 StructField("o_comment", StringType)])
+                 StructField("o_comment", StringType),
+                 StructField("o_orderstatus", StringType)])
 CUSTOMER = Schema([StructField("c_custkey", LongType),
                    StructField("c_name", StringType),
                    StructField("c_mktsegment", StringType),
                    StructField("c_phone", StringType),
-                   StructField("c_acctbal", DoubleType)])
+                   StructField("c_acctbal", DoubleType),
+                   StructField("c_nationkey", LongType),
+                   StructField("c_address", StringType),
+                   StructField("c_comment", StringType)])
 PART = Schema([StructField("p_partkey", LongType),
                StructField("p_brand", StringType),
                StructField("p_type", StringType),
-               StructField("p_container", StringType)])
+               StructField("p_container", StringType),
+               StructField("p_size", LongType)])
+SUPPLIER = Schema([StructField("s_suppkey", LongType),
+                   StructField("s_name", StringType),
+                   StructField("s_address", StringType),
+                   StructField("s_nationkey", LongType),
+                   StructField("s_phone", StringType)])
+NATION = Schema([StructField("n_nationkey", LongType),
+                 StructField("n_name", StringType),
+                 StructField("n_regionkey", LongType)])
+REGION = Schema([StructField("r_regionkey", LongType),
+                 StructField("r_name", StringType)])
 SCHEMAS = {"lineitem": LINEITEM, "orders": ORDERS, "customer": CUSTOMER,
-           "part": PART}
+           "part": PART, "supplier": SUPPLIER, "nation": NATION,
+           "region": REGION}
 
 
 def _numbered(prefix: str, keys: np.ndarray, width: int) -> np.ndarray:
@@ -119,15 +153,47 @@ def _digits(v: np.ndarray, width: int) -> np.ndarray:
             + ord("0")).astype(np.uint8)
 
 
+def _counted(prefix: str, n: int) -> np.ndarray:
+    """`prefix` + each of 0..n-1 in decimal, unpadded: each row's digit
+    matrix shifted left past its leading zeros, which trail as zero
+    bytes and drop."""
+    keys = np.arange(n, dtype=np.int64)
+    width = len(str(max(n - 1, 0)))
+    n_dig = 1 + sum((keys >= 10 ** k).astype(np.int64)
+                    for k in range(1, width))
+    at = (width - n_dig)[:, None] + np.arange(width)
+    dig = np.take_along_axis(_digits(keys, width),
+                             np.minimum(at, width - 1), axis=1)
+    dig[at >= width] = 0
+    pre = np.frombuffer(prefix.encode(), dtype=np.uint8)
+    return _as_bytes(np.concatenate(
+        [np.broadcast_to(pre, (n, len(pre))), dig], axis=1))
+
+
 def _phones(rng: np.random.Generator, n: int) -> np.ndarray:
     """`n` phones "NN-NNN-NNN-NNNN" (benchmarks/tpch/datagen.py's form):
-    NN = nation key + 10, then three random groups."""
+    NN = nation key + 10, the key uniform over the nations, then three
+    random groups."""
+    return _phones_of(rng, rng.integers(0, N_NATIONS, n))
+
+
+def _phones_of(rng: np.random.Generator, nation: np.ndarray) -> np.ndarray:
+    """A phone "NN-NNN-NNN-NNNN" for each of the nation keys `nation`: NN
+    = key + 10, then three random groups."""
+    n = len(nation)
     dash = np.full((n, 1), ord("-"), np.uint8)
-    parts = [_digits(rng.integers(0, N_NATIONS, n) + 10, 2), dash,
+    parts = [_digits(nation + 10, 2), dash,
              _digits(rng.integers(100, 999, n), 3), dash,
              _digits(rng.integers(100, 999, n), 3), dash,
              _digits(rng.integers(1000, 9999, n), 4)]
     return _as_bytes(np.concatenate(parts, axis=1))
+
+
+def _phone_nation(phone: np.ndarray) -> np.ndarray:
+    """The nation key of each phone "NN-...": its first two digits - 10."""
+    b = np.frombuffer(np.ascontiguousarray(phone).tobytes(), np.uint8) \
+        .reshape(len(phone), phone.dtype.itemsize)[:, :2].astype(np.int64)
+    return (b[:, 0] - ord("0")) * 10 + (b[:, 1] - ord("0")) - 10
 
 
 def _comments(rng: np.random.Generator, n: int) -> np.ndarray:
@@ -186,8 +252,8 @@ def _part(rng: np.random.Generator, n: int) -> Dict[str, np.ndarray]:
 
 
 def generate(sf: float, seed: int = 42) -> Dict[str, Dict[str, np.ndarray]]:
-    """{table: {column: numpy array}} for lineitem, orders, customer and
-    part."""
+    """{table: {column: numpy array}} for lineitem, orders, customer,
+    part, supplier, nation and region."""
     rng = np.random.default_rng(seed)
     n_ord = max(100, int(1_500_000 * sf))
     o_date = rng.integers(START, END - 151, n_ord, dtype=np.int32)
@@ -247,8 +313,35 @@ def generate(sf: float, seed: int = 42) -> Dict[str, Dict[str, np.ndarray]]:
     n_part = max(20, int(200_000 * sf))
     part = _part(rng5, n_part)
     lineitem["l_partkey"] = rng5.integers(1, n_part + 1, n, dtype=np.int64)
+    # supplier and the columns that join to it, nation and region (q5,
+    # q10, q15, q19, q21) from a sixth; c_nationkey is c_phone's nation,
+    # which was drawn with it
+    rng6 = np.random.default_rng([seed, 5])
+    n_supp = max(10, int(10_000 * sf))
+    s_nation = rng6.integers(0, N_NATIONS, n_supp, dtype=np.int64)
+    s_keys = np.arange(1, n_supp + 1, dtype=np.int64)
+    supplier = {"s_suppkey": s_keys,
+                "s_name": _numbered("Supplier#", s_keys, 9),
+                "s_address": _counted("addr ", n_supp),
+                "s_nationkey": s_nation,
+                "s_phone": _phones_of(rng6, s_nation)}
+    customer["c_nationkey"] = _phone_nation(customer["c_phone"])
+    customer["c_address"] = _counted("caddr ", n_cust)
+    customer["c_comment"] = _comments(rng6, n_cust)
+    orders["o_orderstatus"] = np.array([b"F", b"O", b"P"])[
+        rng6.integers(0, 3, n_ord, dtype=np.int8)]
+    lineitem["l_suppkey"] = rng6.integers(1, n_supp + 1, n, dtype=np.int64)
+    lineitem["l_shipinstruct"] = np.array(INSTRUCTS, dtype="S")[
+        rng6.integers(0, len(INSTRUCTS), n, dtype=np.int8)]
+    part["p_size"] = rng6.integers(1, 51, n_part, dtype=np.int64)
+    nation = {"n_nationkey": np.arange(N_NATIONS, dtype=np.int64),
+              "n_name": np.array(NATIONS, dtype="S"),
+              "n_regionkey": np.array(NATION_REGION, dtype=np.int64)}
+    region = {"r_regionkey": np.arange(len(REGIONS), dtype=np.int64),
+              "r_name": np.array(REGIONS, dtype="S")}
     return {"lineitem": lineitem, "orders": orders, "customer": customer,
-            "part": part}
+            "part": part, "supplier": supplier, "nation": nation,
+            "region": region}
 
 
 def generate_lineitem(sf: float, seed: int = 42) -> Dict[str, np.ndarray]:
@@ -257,8 +350,9 @@ def generate_lineitem(sf: float, seed: int = 42) -> Dict[str, np.ndarray]:
 
 
 # --------------------------------------------------------------------------
-# the queries (benchmarks/tpch/queries.py q1, q3, q4, q6, q12, q13, q14,
-# q17, q18, q22, and q18's inner lineitem aggregate)
+# the queries (benchmarks/tpch/queries.py q1, q3, q4, q5, q6, q10, q12,
+# q13, q14, q15, q17, q18, q19, q21, q22, and q18's inner lineitem
+# aggregate)
 # --------------------------------------------------------------------------
 
 def q1(li):
@@ -428,11 +522,132 @@ def q17(t):
                  .alias("avg_yearly")))
 
 
+def q5(t):
+    """TPC-H q5: the revenue of ASIA's nations in 1994 from lines whose
+    supplier and customer share a nation (a join on two keys)."""
+    return (t["region"].filter(col("r_name") == "ASIA")
+            .join(t["nation"], on=col("r_regionkey") == col("n_regionkey"))
+            .join(t["supplier"], on=col("n_nationkey") == col("s_nationkey"))
+            .join(t["lineitem"], on=col("s_suppkey") == col("l_suppkey"))
+            .join(t["orders"].filter(
+                (col("o_orderdate") >= "1994-01-01")
+                & (col("o_orderdate") < "1995-01-01")),
+                on=col("l_orderkey") == col("o_orderkey"))
+            .join(t["customer"],
+                  on=(col("o_custkey") == col("c_custkey"))
+                  & (col("c_nationkey") == col("s_nationkey")))
+            .group_by(col("n_name"))
+            .agg(F.sum(col("l_extendedprice")
+                       * (lit(1.0) - col("l_discount"))).alias("revenue"))
+            .order_by(SortOrder(col("revenue"), ascending=False)))
+
+
+def q10(t):
+    """TPC-H q10: the 20 customers with the most revenue lost to returned
+    lines of one quarter's orders, grouped by seven customer columns."""
+    orders = t["orders"].filter((col("o_orderdate") >= "1993-10-01")
+                                & (col("o_orderdate") < "1994-01-01"))
+    li = t["lineitem"].filter(col("l_returnflag") == "R")
+    return (t["customer"]
+            .join(orders, on=col("c_custkey") == col("o_custkey"))
+            .join(li, on=col("o_orderkey") == col("l_orderkey"))
+            .join(t["nation"], on=col("c_nationkey") == col("n_nationkey"))
+            .group_by(col("c_custkey"), col("c_name"), col("c_acctbal"),
+                      col("c_phone"), col("n_name"), col("c_address"),
+                      col("c_comment"))
+            .agg(F.sum(col("l_extendedprice")
+                       * (lit(1.0) - col("l_discount"))).alias("revenue"))
+            .order_by(SortOrder(col("revenue"), ascending=False))
+            .limit(20))
+
+
+def q15(t):
+    """TPC-H q15: the suppliers with the most revenue in one quarter.  The
+    maximum is collected first, in a query of its own."""
+    li = t["lineitem"].filter((col("l_shipdate") >= "1996-01-01")
+                              & (col("l_shipdate") < "1996-04-01"))
+    revenue = (li.group_by(col("l_suppkey"))
+               .agg(F.sum(col("l_extendedprice")
+                          * (lit(1.0) - col("l_discount")))
+                    .alias("total_revenue")))
+    top = revenue.agg(F.max(col("total_revenue")).alias("m")) \
+        .collect()[0][0] or 0.0
+    return (t["supplier"]
+            .join(revenue.filter(col("total_revenue") >= top - 1e-6),
+                  on=col("s_suppkey") == col("l_suppkey"))
+            .select(col("s_suppkey"), col("s_name"), col("s_address"),
+                    col("s_phone"), col("total_revenue"))
+            .order_by("s_suppkey"))
+
+
+Q19_BRANCHES = [  # brand, containers, quantity range, largest size
+    ("Brand#12", ("SM CASE", "SM BOX", "SM PACK", "SM PKG"), (1, 11), 5),
+    ("Brand#23", ("MED BAG", "MED BOX", "MED PKG", "MED PACK"), (10, 20),
+     10),
+    ("Brand#34", ("LG CASE", "LG BOX", "LG PACK", "LG PKG"), (20, 30), 15)]
+
+
+def q19(t):
+    """TPC-H q19: the discounted revenue of lines shipped by air in
+    person whose part matches one of three brand, container, quantity
+    and size conditions (an OR of three conjunctions)."""
+    li = t["lineitem"].filter(
+        col("l_shipmode").isin("AIR", "REG AIR")
+        & (col("l_shipinstruct") == "DELIVER IN PERSON"))
+    joined = li.join(t["part"], on=col("l_partkey") == col("p_partkey"))
+    b1, b2, b3 = [(col("p_brand") == brand)
+                  & col("p_container").isin(*containers)
+                  & col("l_quantity").between(*qty)
+                  & col("p_size").between(1, size)
+                  for brand, containers, qty, size in Q19_BRANCHES]
+    return (joined.filter(b1 | b2 | b3)
+            .agg(F.sum(col("l_extendedprice")
+                       * (lit(1.0) - col("l_discount"))).alias("revenue")))
+
+
+def q21(t):
+    """TPC-H q21 as benchmarks/tpch/queries.py writes it: the SAUDI
+    ARABIA suppliers who were the one late supplier of a finished order
+    with several suppliers, counted per supplier, the 100 most first."""
+    nation = t["nation"].filter(col("n_name") == "SAUDI ARABIA")
+    f_orders = t["orders"].filter(col("o_orderstatus") == "F") \
+        .select(col("o_orderkey"))
+    li = t["lineitem"].join(f_orders,
+                            on=col("l_orderkey") == col("o_orderkey"),
+                            how="left_semi")
+    # per order: number of distinct suppliers, and of distinct late ones
+    supp_per_order = (li.group_by(col("l_orderkey"), col("l_suppkey"))
+                      .agg(F.count(lit(1)).alias("_c"))
+                      .group_by(col("l_orderkey"))
+                      .agg(F.count(lit(1)).alias("nsupp"))
+                      .select(col("l_orderkey").alias("all_key"),
+                              col("nsupp")))
+    late = li.filter(col("l_receiptdate") > col("l_commitdate"))
+    late_per_order = (late.group_by(col("l_orderkey"), col("l_suppkey"))
+                      .agg(F.count(lit(1)).alias("_c"))
+                      .group_by(col("l_orderkey"))
+                      .agg(F.count(lit(1)).alias("nlate"))
+                      .select(col("l_orderkey").alias("late_key"),
+                              col("nlate")))
+    blamed = (late
+              .join(supp_per_order, on=col("l_orderkey") == col("all_key"))
+              .join(late_per_order, on=col("l_orderkey") == col("late_key"))
+              .filter((col("nsupp") > 1) & (col("nlate") == 1)))
+    return (blamed
+            .join(t["supplier"], on=col("l_suppkey") == col("s_suppkey"))
+            .join(nation, on=col("s_nationkey") == col("n_nationkey"))
+            .group_by(col("s_name"))
+            .agg(F.count(lit(1)).alias("numwait"))
+            .order_by(SortOrder(col("numwait"), ascending=False), "s_name")
+            .limit(100))
+
+
 # the lineitem-only queries take the lineitem DataFrame, the joins a dict
 # of DataFrames by table name
 QUERIES = {"q1": q1, "q6": q6, "q18_inner": q18_inner}
 JOIN_QUERIES = {"q3": q3, "q4": q4, "q12": q12, "q13": q13, "q14": q14,
-                "q17": q17, "q18": q18, "q22": q22}
+                "q17": q17, "q18": q18, "q22": q22, "q5": q5, "q10": q10,
+                "q15": q15, "q19": q19, "q21": q21}
 
 
 # --------------------------------------------------------------------------
@@ -708,13 +923,132 @@ def oracle_q17(t) -> List[tuple]:
     return [(float(li["l_extendedprice"][m][keep].sum() / 7.0),)]
 
 
+def _revenue(li: Dict[str, np.ndarray], m) -> np.ndarray:
+    return li["l_extendedprice"][m] * (1.0 - li["l_discount"][m])
+
+
+def oracle_q5(t) -> List[tuple]:
+    r, n, s = t["region"], t["nation"], t["supplier"]
+    c, o, li = t["customer"], t["orders"], t["lineitem"]
+    asia = r["r_regionkey"][r["r_name"] == b"ASIA"]
+    nations = n["n_nationkey"][_in_keys(asia, n["n_regionkey"])]
+    supp = s["s_suppkey"][_in_keys(nations, s["s_nationkey"])]
+    od = o["o_orderdate"]
+    okey = o["o_orderkey"][(od >= days("1994-01-01"))
+                           & (od < days("1995-01-01"))]
+    m = np.flatnonzero(_in_keys(supp, li["l_suppkey"])
+                       & _in_keys(okey, li["l_orderkey"]))
+    s_nat = s["s_nationkey"][_row_of(s["s_suppkey"], li["l_suppkey"][m])]
+    cust = o["o_custkey"][_row_of(o["o_orderkey"], li["l_orderkey"][m])]
+    has_cust = _in_keys(c["c_custkey"], cust)
+    m, s_nat, cust = m[has_cust], s_nat[has_cust], cust[has_cust]
+    keep = c["c_nationkey"][_row_of(c["c_custkey"], cust)] == s_nat
+    nat, inv = np.unique(s_nat[keep], return_inverse=True)
+    rev = np.bincount(inv, weights=_revenue(li, m[keep]),
+                      minlength=len(nat))
+    name = _text(n["n_name"])[_row_of(n["n_nationkey"], nat)]
+    return [(str(name[i]), float(rev[i])) for i in np.argsort(-rev,
+                                                               kind="stable")]
+
+
+def oracle_q10(t) -> List[tuple]:
+    """Every customer group of q10 in q10's order; q10 keeps the first 20
+    (compare with top_rows_match)."""
+    n, c, o, li = t["nation"], t["customer"], t["orders"], t["lineitem"]
+    od = o["o_orderdate"]
+    om = (od >= days("1993-10-01")) & (od < days("1994-01-01")) \
+        & _in_keys(c["c_custkey"], o["o_custkey"])
+    m = np.flatnonzero((li["l_returnflag"] == b"R")
+                       & _in_keys(o["o_orderkey"][om], li["l_orderkey"]))
+    cust = o["o_custkey"][_row_of(o["o_orderkey"], li["l_orderkey"][m])]
+    keys, inv = np.unique(cust, return_inverse=True)
+    rev = np.bincount(inv, weights=_revenue(li, m), minlength=len(keys))
+    row = _row_of(c["c_custkey"], keys)
+    nat = c["c_nationkey"][row]
+    has_nation = _in_keys(n["n_nationkey"], nat)
+    keys, rev, row, nat = (a[has_nation] for a in (keys, rev, row, nat))
+    nname = _text(n["n_name"])[_row_of(n["n_nationkey"], nat)]
+    cols = [_text(c[k][row]) for k in ("c_name", "c_phone", "c_address",
+                                       "c_comment")]
+    bal = c["c_acctbal"][row]
+    return [(int(keys[i]), str(cols[0][i]), float(bal[i]), str(cols[1][i]),
+             str(nname[i]), str(cols[2][i]), str(cols[3][i]), float(rev[i]))
+            for i in np.argsort(-rev, kind="stable")]
+
+
+def oracle_q15(t) -> List[tuple]:
+    """q15's rows.  The top revenue is the maximum of the oracle's own
+    sums, as the query's is the maximum of its own."""
+    s, li = t["supplier"], t["lineitem"]
+    sd = li["l_shipdate"]
+    m = np.flatnonzero((sd >= days("1996-01-01")) & (sd < days("1996-04-01")))
+    keys, inv = np.unique(li["l_suppkey"][m], return_inverse=True)
+    rev = np.bincount(inv, weights=_revenue(li, m), minlength=len(keys))
+    top = float(rev.max()) if len(rev) else 0.0
+    keep = (rev >= top - 1e-6) & _in_keys(s["s_suppkey"], keys)
+    keys, rev = keys[keep], rev[keep]
+    row = _row_of(s["s_suppkey"], keys)
+    name, addr, phone = (_text(s[k][row])
+                         for k in ("s_name", "s_address", "s_phone"))
+    return [(int(keys[i]), str(name[i]), str(addr[i]), str(phone[i]),
+             float(rev[i])) for i in np.argsort(keys)]
+
+
+def oracle_q19(t) -> List[tuple]:
+    li, p = t["lineitem"], t["part"]
+    m = np.flatnonzero(np.isin(li["l_shipmode"], [b"AIR", b"REG AIR"])
+                       & (li["l_shipinstruct"] == b"DELIVER IN PERSON"))
+    m = m[_in_keys(p["p_partkey"], li["l_partkey"][m])]
+    row = _row_of(p["p_partkey"], li["l_partkey"][m])
+    qty = li["l_quantity"][m]
+    keep = np.zeros(len(m), bool)
+    for brand, containers, (lo, hi), size in Q19_BRANCHES:
+        keep |= ((p["p_brand"][row] == brand.encode())
+                 & np.isin(p["p_container"][row],
+                           [x.encode() for x in containers])
+                 & (qty >= lo) & (qty <= hi)
+                 & (p["p_size"][row] >= 1) & (p["p_size"][row] <= size))
+    if not keep.any():
+        return [(None,)]
+    return [(float(_revenue(li, m[keep]).sum()),)]
+
+
+def oracle_q21(t) -> List[tuple]:
+    n, s, o, li = t["nation"], t["supplier"], t["orders"], t["lineitem"]
+    m = np.flatnonzero(_in_keys(o["o_orderkey"][o["o_orderstatus"] == b"F"],
+                               li["l_orderkey"]))
+    okey, skey = li["l_orderkey"][m], li["l_suppkey"][m]
+    late = li["l_receiptdate"][m] > li["l_commitdate"][m]
+    width = int(skey.max()) + 1 if len(skey) else 1
+
+    def suppliers_per_order(rows):
+        """(orders, their count of distinct suppliers) over `rows`."""
+        pairs = np.unique(okey[rows] * width + skey[rows])
+        return np.unique(pairs // width, return_counts=True)
+    all_o, nsupp = suppliers_per_order(slice(None))
+    late_o, nlate = suppliers_per_order(late)
+    lo, ls = okey[late], skey[late]
+    blamed = ls[(nsupp[np.searchsorted(all_o, lo)] > 1)
+                & (nlate[np.searchsorted(late_o, lo)] == 1)]
+    blamed = blamed[_in_keys(s["s_suppkey"], blamed)]
+    row = _row_of(s["s_suppkey"], blamed)
+    saudi = n["n_nationkey"][n["n_name"] == b"SAUDI ARABIA"]
+    row = row[_in_keys(saudi, s["s_nationkey"][row])]
+    row, count = np.unique(row, return_counts=True)
+    names = _text(s["s_name"][row])
+    order = np.lexsort((names, -count))[:100]
+    return [(str(names[i]), int(count[i])) for i in order]
+
+
 ORACLES = {"q1": oracle_q1, "q6": oracle_q6, "q18_inner": oracle_q18_inner,
-           "q3": oracle_q3, "q4": oracle_q4, "q12": oracle_q12,
-           "q13": oracle_q13, "q14": oracle_q14, "q17": oracle_q17,
-           "q18": oracle_q18, "q22": oracle_q22}
+           "q3": oracle_q3, "q4": oracle_q4, "q5": oracle_q5,
+           "q10": oracle_q10, "q12": oracle_q12, "q13": oracle_q13,
+           "q14": oracle_q14, "q15": oracle_q15, "q17": oracle_q17,
+           "q18": oracle_q18, "q19": oracle_q19, "q21": oracle_q21,
+           "q22": oracle_q22}
 # how many of the oracle's rows each top-N query keeps, and the column it
 # orders by first
-TOP_N = {"q3": (10, 3), "q18": (100, 4)}
+TOP_N = {"q3": (10, 3), "q10": (20, 7), "q18": (100, 4)}
 
 
 def rows_match(want: List[tuple], got: List[tuple],
