@@ -20,10 +20,11 @@ Phases, each printing a line:
      PyTorch library call where one computes the same function, and
      beside its bound;
   3. queries: TPC-H lineitem (60 M rows, one 2^26-row batch), orders
-     (15 M), customer (1.5 M), part (2 M), supplier (100 k), nation and
-     region at SF10, generated on the host from seed 42; q1, q6 and q18's
-     inner lineitem aggregate, then q3, q4, q12, q13, q14, q17, q18, q22,
-     q5, q10, q15, q19 and q21 whole (inner, semi, anti and left outer
+     (15 M), customer (1.5 M), part (2 M), supplier (100 k), partsupp
+     (8 M), nation and region at SF10, generated on the host from seed
+     42; q1, q6 and q18's inner lineitem aggregate, then q3, q4, q12,
+     q13, q14, q17, q18, q22, q5, q10, q15, q19, q21, q2, q7, q8, q9,
+     q11, q16 and q20 whole (inner, semi, anti and left outer
      equi-joins, limits; q12's In and CaseWhen over string columns; q13's
      Contains filter over o_comment, a left outer join building the 15 M
      orders it keeps, o_comment included, and an aggregate over 1.5 M
@@ -36,7 +37,14 @@ Phases, each printing a line:
      20; q15's per-supplier aggregate and the maximum collected from
      it; q19's OR of three conjunctions of In, between and string
      equality over a join to part; q21's semi join of all the lines,
-     four aggregates in two levels and the joins back), through
+     four aggregates in two levels and the joins back; q2's per-part
+     minimum joined back on two keys and its top 100; Year in q7, q8
+     and q9; q9's join to partsupp on two keys; q11 at TPC-H's fraction
+     0.0001 / SF, which keeps some parts, where the JAX package's 0.0001
+     keeps none at SF10; q16's left_anti join and distinct count by
+     string keys; q20 at its "forest" prefix, which may keep no supplier
+     at SF10 (its oracle must be empty too), and at "" as
+     `q20_any_part`, which keeps some), through
      TpuSession(device="cuda"), each compared with a numpy oracle.  The
      session sets spark.rapids.sql.tpu.join.partitioned.enabled=false: at
      SF10 the JAX package's rules partition every one of these joins
@@ -53,10 +61,11 @@ Phases, each printing a line:
      reach the left outer join's unmatched path.  The launch counts of
      the first runs show the queries went through all three kernels (K3
      in every hash-join build, counted around the build itself, and K1,
-     K2 and K3 in the sort-path aggregates of q10, q13, q15, q17, q18 and
-     q21), and every shape a kernel was launched at there, or in phases
-     4 and 5, that phase 2 did not cover is held against the plain
-     version too, after phase 5;
+     K2 and K3 in the sort-path aggregates of q10, q13, q15, q17, q18,
+     q21, q2, q11, q16 and q20), and every shape a kernel was launched at
+     there, or in phases 4 and 5, that phase 2 did not cover is held
+     against the plain version too, after phase 6.  A `sparsity` line
+     counts, with numpy, the rows q9's and q20's joins to partsupp keep;
   4. string filters: count(*) of the orders whose o_comment (2^24 rows of
      up to 64 bytes) passes each of tpch.STRING_FILTERS (Contains, Like,
      StartsWith, EndsWith, Substring), each against its numpy oracle,
@@ -68,8 +77,14 @@ Phases, each printing a line:
      join building the orders, and a full outer join building the
      customers, whose tail is the customers without a 1992 order),
      counted and held to its numpy oracle, with the same numbers as the
-     filters and its join execs; each must launch K3 in its build.
-The second-last line is the card as nvidia-smi names it; the last is
+     filters and its join execs; each must launch K3 in its build;
+  6. date parts: each of the eleven classes (Year to WeekDay) over a
+     seeded 2^24-row date column of 1600-2400 and a timestamp column of
+     the same years, pre-epoch rows among them, with 10% nulls, on the
+     card against the same class on the CPU (values and null masks
+     exact), with its time on the card.
+A `phase_seconds` line gives each phase's wall seconds.  The
+second-last line is the card as nvidia-smi names it; the last is
 {"ok": true, "device": {...}}.  Any failure raises: nothing is caught,
 and the script prints no result line without a CUDA device.
 """
@@ -79,6 +94,7 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 from spark_rapids_tpu_torch import TpuSession, tpch
@@ -87,7 +103,11 @@ from spark_rapids_tpu_torch.exec.aggregate import TpuHashAggregateExec
 from spark_rapids_tpu_torch.exec.broadcast import TpuBroadcastHashJoinExec
 from spark_rapids_tpu_torch.exec.join import (TpuHashJoinExec,
                                               TpuReorderColumnsExec)
+from spark_rapids_tpu_torch.ops import datetime_exprs as D
 from spark_rapids_tpu_torch.ops import kernels as K
+from spark_rapids_tpu_torch.ops.expressions import BoundReference
+from spark_rapids_tpu_torch.types import (DateType, Schema, StructField,
+                                          TimestampType)
 
 SF = 10.0                  # TPC-H scale factor of the query phase
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (data sheet)
@@ -107,6 +127,17 @@ K1_REQUEST_SETS = [((_F64, "sum"),), ((_I64, "min"),), ((_F64, "min"),),
                    ((_F64, "max"),), ((_I64, "max"),),
                    ((_I32, "max"), (_F64, "min")),
                    ((_I32, "max"), (_F64, "max"))]
+# query runs at arguments other than their defaults: name -> (query,
+# arguments).  q11 at TPC-H's FRACTION = 0.0001 / SF; q20 at the prefix
+# "" (every part) as well as at its default "forest"
+VARIANTS = {"q11": ("q11", (tpch.Q11_FRACTION / SF,)),
+            "q20_any_part": ("q20", ("",))}
+# may come back empty at SF10, when its oracle does too (tpch.q20)
+MAY_BE_EMPTY = {"q20"}
+# their aggregates take the sort path: each launches K1, K2 and K3
+SORT_PATH = ("q10", "q13", "q15", "q17", "q18", "q21", "q2", "q11", "q16",
+             "q20", "q20_any_part")
+DATE_PART_ROWS = 1 << 24
 
 
 def card_line() -> str:
@@ -303,12 +334,22 @@ def _queries(dfs: dict) -> dict:
     out = {name: (lambda q=q: q(li)) for name, q in tpch.QUERIES.items()}
     out.update({name: (lambda q=q: q(dfs))
                 for name, q in tpch.JOIN_QUERIES.items()})
+    out.update({name: (lambda q=q, a=a: tpch.JOIN_QUERIES[q](dfs, *a))
+                for name, (q, a) in VARIANTS.items()})
     return out
 
 
+def _oracle(name: str, tables: dict) -> list:
+    query, args = VARIANTS.get(name, (name, ()))
+    if query in tpch.QUERIES:
+        return tpch.ORACLES[query](tables["lineitem"])
+    return tpch.ORACLES[query](tables, *args)
+
+
 def _matches(name: str, want: list, got: list) -> bool:
-    if name in tpch.TOP_N:
-        return tpch.top_rows_match(want, got, *tpch.TOP_N[name])
+    query = VARIANTS.get(name, (name,))[0]
+    if query in tpch.TOP_N:
+        return tpch.top_rows_match(want, got, *tpch.TOP_N[query])
     return tpch.rows_match(want, got)
 
 
@@ -346,9 +387,9 @@ def run_queries(tables: dict, device: str = "cuda") -> tuple:
     shapes = launched_shapes()
     for name, (ms, got, paths, (own, own_shapes), joins, mem) in \
             first.items():
-        oracle = tpch.ORACLES[name]
-        want = oracle(tables["lineitem"]) if name in tpch.QUERIES \
-            else oracle(tables)
+        t0 = time.perf_counter()
+        want = _oracle(name, tables)
+        oracle_s = time.perf_counter() - t0
         match = _matches(name, want, got)
         warm = []
         for _ in range(REPS):
@@ -357,7 +398,7 @@ def run_queries(tables: dict, device: str = "cuda") -> tuple:
             warm.append((time.perf_counter() - t0) * 1e3)
         print("query " + json.dumps({
             "query": name, "rows": len(got),
-            "matches_oracle": match,
+            "matches_oracle": match, "oracle_s": oracle_s,
             "joins": joins, "first_ms": ms, "warm_ms": warm,
             "warm_median_ms": statistics.median(warm),
             "agg_update_paths": paths, "launches": own,
@@ -367,17 +408,16 @@ def run_queries(tables: dict, device: str = "cuda") -> tuple:
             **({"result": [[int(v) for v in r] for r in got]}
                if name == "q13" else {})}),
             flush=True)
-        if not match or not got:
+        if not match or not (got or name in MAY_BE_EMPTY):
             raise AssertionError(f"{name} disagrees with the numpy oracle "
                                  f"or is empty: {got[:3]} vs {want[:3]}")
         unsorted = [j for j in joins if not j["build_k3_launches"]]
-        if name in tpch.JOIN_QUERIES and not joins:
+        if name not in tpch.QUERIES and not joins:
             raise AssertionError(f"{name} planned no hash join: {joins}")
         if unsorted:
             raise AssertionError(f"{name}: hash-join builds that launched "
                                  f"no K3: {unsorted}")
-    # they aggregate on the sort path
-    for name in ("q10", "q13", "q15", "q17", "q18", "q21"):
+    for name in SORT_PATH:
         if not all(first[name][3][0].values()):
             raise AssertionError(f"{name} did not launch every kernel: "
                                  f"{first[name][3][0]}")
@@ -390,6 +430,67 @@ def run_queries(tables: dict, device: str = "cuda") -> tuple:
         raise AssertionError(f"kernels never launched by the queries: "
                              f"{missing}")
     return launches, shapes, dfs
+
+
+def partsupp_sparsity(tables: dict) -> dict:
+    """With numpy: how many of q9's "green" lines, and of q20's (part,
+    supplier) pairs of 1994, meet a partsupp row of the same part and
+    supplier (the JAX datagen draws a line's supplier apart from them)."""
+    ps, li, p = tables["partsupp"], tables["lineitem"], tables["part"]
+    width = int(ps["ps_suppkey"].max()) + 1
+    ps_pairs = np.unique(ps["ps_partkey"] * width + ps["ps_suppkey"])
+
+    def met(part, supp):
+        return int(np.isin(part * width + supp, ps_pairs).sum())
+    green = np.isin(li["l_partkey"], p["p_partkey"][
+        np.char.find(p["p_name"], b"green") >= 0])
+    sd = li["l_shipdate"]
+    y94 = (sd >= tpch.days("1994-01-01")) & (sd < tpch.days("1995-01-01"))
+    pairs = np.unique(li["l_partkey"][y94] * width + li["l_suppkey"][y94])
+    forest = np.isin(pairs // width, p["p_partkey"][
+        np.char.startswith(p["p_name"], b"forest")])
+    return {"q9_green_lines": int(green.sum()),
+            "q9_green_lines_meeting_partsupp": met(li["l_partkey"][green],
+                                                   li["l_suppkey"][green]),
+            "q20_pairs_1994": len(pairs),
+            "q20_pairs_meeting_partsupp": met(pairs // width, pairs % width),
+            "q20_forest_pairs_meeting_partsupp": met(
+                pairs[forest] // width, pairs[forest] % width)}
+
+
+def check_date_parts(dev: torch.device, seed: int = 42) -> None:
+    """Each of the eleven date parts over a seeded date and timestamp
+    column (1600-2400, pre-epoch rows among them, 10% nulls) on the card
+    against the same class on the CPU: values and null masks exact."""
+    rng = np.random.default_rng(seed)
+    n = DATE_PART_ROWS
+    lo, hi = tpch.days("1600-01-01"), tpch.days("2400-12-31")
+    day_us = 86_400_000_000
+    cols = {"d": rng.integers(lo, hi + 1, n, dtype=np.int32),
+            "t": rng.integers(lo * day_us, (hi + 1) * day_us, n)}
+    valid = rng.random(n) >= 0.1
+    data = {k: np.ma.masked_array(v, mask=~valid) for k, v in cols.items()}
+    schema = Schema([StructField("d", DateType),
+                     StructField("t", TimestampType)])
+    batches = {str(d): TpuSession(device=d).from_numpy(data, schema)
+               .plan.table for d in ("cpu", dev)}
+    classes = [getattr(D, c) for c in (
+        "Year", "Month", "DayOfMonth", "DayOfWeek", "DayOfYear", "Quarter",
+        "LastDay", "Hour", "Minute", "Second", "WeekDay")]
+    for i, dtype in enumerate((DateType, TimestampType)):
+        for cls in classes:
+            expr = cls(BoundReference(i, dtype))
+            want, got = (expr.eval(batches[k]) for k in ("cpu", str(dev)))
+            ok = (torch.equal(got.data.cpu(), want.data)
+                  and torch.equal(got.valid.cpu(), want.valid))
+            print("date_part " + json.dumps({
+                "class": cls.__name__, "child": dtype.name, "rows": n,
+                "matches_cpu": ok, "ms": time_ms(
+                    lambda: expr.eval(batches[str(dev)]))}), flush=True)
+            if not ok:
+                raise AssertionError(f"{cls.__name__} of a {dtype.name} "
+                                     "column on the card differs from the "
+                                     "CPU")
 
 
 def shape_launches(before: list = ()) -> list:
@@ -536,6 +637,8 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is false; this needs "
               "an NVIDIA card", file=sys.stderr)
         return 1
+    # (phase, when it ended), for the phase_seconds line
+    ends = [("start", time.perf_counter())]
     card = card_line()
     print(f"device: {card}; torch {torch.__version__} cuda "
           f"{torch.version.cuda}", flush=True)
@@ -547,6 +650,7 @@ def main() -> int:
     cap = bucket_rows(len(tables["lineitem"]["l_orderkey"]))
     print(f"tables: sf={SF}, generated on the host in "
           f"{time.perf_counter() - t0:.3f} s", flush=True)
+    ends.append(("build and tables", time.perf_counter()))
 
     gen = torch.Generator(device="cuda").manual_seed(42)
     dev = torch.device("cuda")
@@ -554,17 +658,27 @@ def main() -> int:
     checked = phase2_shapes(cap)
     check_kernels(gen, dev, checked, report)
     torch.cuda.empty_cache()
+    ends.append(("kernels", time.perf_counter()))
     launches, shapes, dfs = run_queries(tables)
+    ends.append(("queries", time.perf_counter()))
     shapes += run_string_filters(dfs["orders"], tables["orders"])
     shapes += run_outer_joins(dfs, tables)
     del dfs
     torch.cuda.empty_cache()
+    print("sparsity " + json.dumps(partsupp_sparsity(tables)), flush=True)
+    ends.append(("filters, outer joins and sparsity", time.perf_counter()))
+    check_date_parts(dev)
+    ends.append(("date parts", time.perf_counter()))
     shapes = list(dict.fromkeys(shapes))
     rest = [ks for ks in shapes if ks not in checked]
     print(f"kernels: {len(shapes) - len(rest)} of the {len(shapes)} shapes "
           f"launched by the queries, filters and outer joins were checked "
           f"in phase 2; checking the other {len(rest)}", flush=True)
     check_kernels(gen, dev, rest, report)
+    ends.append(("launched shapes", time.perf_counter()))
+    print("phase_seconds " + json.dumps(
+        {name: t - before for (_, before), (name, t) in zip(ends, ends[1:])}),
+        flush=True)
 
     kernels = []
     for k in K.KERNELS:

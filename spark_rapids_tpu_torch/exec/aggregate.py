@@ -554,6 +554,8 @@ class TpuHashAggregateExec(ExecNode):
                     partial = self._update_kernel(batch)
                     self.update_paths["sort"] += 1
             pending.append(partial)
+            # hold no input batch while the stream makes the next one
+            del batch, partial
             if len(pending) >= fan_in:
                 state = fold(state, pending)
                 pending = []

@@ -7,13 +7,15 @@ runtime yet.
 """
 from __future__ import annotations
 
-from typing import Iterator, Optional
+from typing import Callable, Iterator, Optional, TypeVar
 
 import torch
 
 from ..columnar import ColumnarBatch
 from ..config import TpuConf
 from ..types import Schema
+
+T = TypeVar("T")
 
 
 class ExecContext:
@@ -35,3 +37,15 @@ class ExecNode:
 
     def execute(self, ctx: ExecContext) -> Iterator[ColumnarBatch]:
         raise NotImplementedError
+
+
+def map_batches(batches: Iterator[ColumnarBatch],
+                fn: Callable[[ColumnarBatch], T]) -> Iterator[T]:
+    """`fn` over each batch of a stream, holding neither the input batch
+    nor its output while the consumer runs or the stream makes its next
+    batch: a chain of streaming execs then keeps two generations of
+    batches alive, not three."""
+    for batch in batches:
+        out = [fn(batch)]
+        del batch
+        yield out.pop()

@@ -17,7 +17,7 @@ from ..columnar import Column, ColumnarBatch, bucket_rows
 from ..config import MAX_READER_BATCH_SIZE_ROWS, SORT_PACKED_ENABLED
 from ..ops import expressions as E
 from ..types import Schema, StructField
-from .base import ExecContext, ExecNode
+from .base import ExecContext, ExecNode, map_batches
 
 
 def _pred_keep(col: Column) -> torch.Tensor:
@@ -50,20 +50,24 @@ class TpuScanMemoryExec(ExecNode):
             yield self.table
             return
         for off in range(0, n, limit):
-            cnt = min(limit, n - off)
-            cap = bucket_rows(cnt)
-            cols = []
-            for c in self.table.columns:
-                def part(t):
-                    out = torch.zeros((cap,) + tuple(t.shape[1:]),
-                                      dtype=t.dtype, device=t.device)
-                    out[:cnt] = t[off:off + cnt]
-                    return out
-                cols.append(Column(part(c.data), part(c.valid), c.dtype,
-                                   part(c.lengths) if c.dtype.is_string
-                                   else None))
-            sel = torch.arange(cap, device=self.table.device) < cnt
-            yield ColumnarBatch(cols, sel, self.table.schema)
+            # built in a call, so that this frame holds no batch while
+            # the consumer runs
+            yield self._slice(off, min(limit, n - off))
+
+    def _slice(self, off: int, cnt: int) -> ColumnarBatch:
+        cap = bucket_rows(cnt)
+        cols = []
+        for c in self.table.columns:
+            def part(t):
+                out = torch.zeros((cap,) + tuple(t.shape[1:]),
+                                  dtype=t.dtype, device=t.device)
+                out[:cnt] = t[off:off + cnt]
+                return out
+            cols.append(Column(part(c.data), part(c.valid), c.dtype,
+                               part(c.lengths) if c.dtype.is_string
+                               else None))
+        sel = torch.arange(cap, device=self.table.device) < cnt
+        return ColumnarBatch(cols, sel, self.table.schema)
 
 
 class TpuProjectExec(ExecNode):
@@ -79,9 +83,10 @@ class TpuProjectExec(ExecNode):
         return self._schema
 
     def execute(self, ctx):
-        for batch in self.children[0].execute(ctx):
-            yield ColumnarBatch([e.eval(batch) for e in self.exprs],
-                                batch.sel, self._schema)
+        yield from map_batches(
+            self.children[0].execute(ctx),
+            lambda batch: ColumnarBatch([e.eval(batch) for e in self.exprs],
+                                        batch.sel, self._schema))
 
 
 class TpuFilterExec(ExecNode):
@@ -94,8 +99,9 @@ class TpuFilterExec(ExecNode):
         return self.children[0].schema
 
     def execute(self, ctx):
-        for batch in self.children[0].execute(ctx):
-            yield batch.filter(_pred_keep(self.condition.eval(batch)))
+        yield from map_batches(
+            self.children[0].execute(ctx),
+            lambda batch: batch.filter(_pred_keep(self.condition.eval(batch))))
 
 
 class TpuLocalLimitExec(ExecNode):
@@ -144,5 +150,6 @@ class DeviceToHostExec(ExecNode):
 
     def execute_host(self, ctx: ExecContext, rows: bool
                      ) -> Iterator[Union[List[tuple], Dict[str, np.ndarray]]]:
-        for batch in self.children[0].execute(ctx):
-            yield batch.to_pylist() if rows else batch.to_pydict()
+        yield from map_batches(
+            self.children[0].execute(ctx),
+            lambda batch: batch.to_pylist() if rows else batch.to_pydict())

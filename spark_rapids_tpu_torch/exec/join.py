@@ -58,7 +58,7 @@ from ..ops import kernels as K
 from ..ops.hashing import _normalize_bits, hash_columns_h1
 from ..types import Schema, StructField
 from ..utils import packed_sort as PS
-from .base import ExecContext, ExecNode
+from .base import ExecContext, ExecNode, map_batches
 
 _SIGN = -(1 << 63)  # xor flips unsigned order into signed order
 
@@ -118,8 +118,9 @@ class TpuReorderColumnsExec(ExecNode):
         return self._schema
 
     def execute(self, ctx):
-        for b in self.children[0].execute(ctx):
-            yield b.select_columns(self.perm, self._schema)
+        yield from map_batches(
+            self.children[0].execute(ctx),
+            lambda b: b.select_columns(self.perm, self._schema))
 
 
 class _Build:
@@ -304,8 +305,9 @@ class TpuHashJoinExec(ExecNode):
         hit = torch.zeros(build.batch.capacity + 1, dtype=torch.bool,
                           device=ctx.device) \
             if self.join_type == "full" else None
-        for lbatch in self.children[0].execute(ctx):
-            yield self._join_batch(lbatch, build, hit)
+        yield from map_batches(
+            self.children[0].execute(ctx),
+            lambda lbatch: self._join_batch(lbatch, build, hit))
         if hit is not None:
             tail = self._tail(build, hit)
             if tail is not None:

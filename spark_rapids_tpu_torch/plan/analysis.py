@@ -20,6 +20,7 @@ import datetime
 import re
 from typing import List, Optional, Tuple
 
+from ..ops import datetime_exprs as D
 from ..ops import expressions as E
 from ..ops import strings as S
 from ..ops.aggregates import AGG_FUNCS, AggregateExpression
@@ -122,6 +123,8 @@ def resolve(ce, schema: Schema) -> E.Expression:
     if op in S.STRING_EXPRESSIONS:
         return S.STRING_EXPRESSIONS[op](*[resolve(a, schema)
                                           for a in ce.args])
+    if op in D.DATE_PARTS:
+        return D.DATE_PARTS[op](resolve(ce.args[0], schema))
     if op in E.EXPRESSIONS:
         args = [resolve(a, schema) for a in ce.args]
         if len(args) == 2 and (op in E.COMPARISONS or op in E.ARITHMETIC):

@@ -5,10 +5,11 @@ operator and are built as `ColumnExpr("Pmod", (a, b))`), `abs`, the
 comparison and boolean operators, `between`, `isin`, `is_null` and
 `is_not_null`, the aggregate functions sum, avg, count, min and max,
 `when`/`otherwise`, `coalesce`, `isnan`, `least` and `greatest`,
-`substr`, `startswith`, `endswith`, `contains` and `like`, `SortOrder`,
-and the scan, filter, project, aggregate, join, sort and limit nodes.
-Op names and argument layouts are the JAX package's, so one ColumnExpr
-tree means the same to both.
+`substr`, `startswith`, `endswith`, `contains` and `like`, the date
+parts `year`, `month`, `dayofmonth`, `hour`, `minute` and `second`,
+`SortOrder`, and the scan, filter, project, aggregate, join, sort and
+limit nodes.  Op names and argument layouts are the JAX package's, so
+one ColumnExpr tree means the same to both.
 """
 from __future__ import annotations
 
@@ -212,6 +213,30 @@ class functions:
     @staticmethod
     def greatest(*exprs):
         return ColumnExpr("Greatest", tuple(_wrap(e) for e in exprs))
+
+    @staticmethod
+    def year(e):
+        return ColumnExpr("Year", (_wrap(e),))
+
+    @staticmethod
+    def month(e):
+        return ColumnExpr("Month", (_wrap(e),))
+
+    @staticmethod
+    def dayofmonth(e):
+        return ColumnExpr("DayOfMonth", (_wrap(e),))
+
+    @staticmethod
+    def hour(e):
+        return ColumnExpr("Hour", (_wrap(e),))
+
+    @staticmethod
+    def minute(e):
+        return ColumnExpr("Minute", (_wrap(e),))
+
+    @staticmethod
+    def second(e):
+        return ColumnExpr("Second", (_wrap(e),))
 
 
 class WhenBuilder(ColumnExpr):

@@ -80,6 +80,20 @@ NATIONS = ["ALGERIA", "ARGENTINA", "BRAZIL", "CANADA", "EGYPT", "ETHIOPIA",
 NATION_REGION = [0, 1, 1, 1, 4, 0, 3, 3, 2, 2, 4, 4, 2, 4, 0, 0, 0, 1, 2, 3,
                  4, 2, 3, 3, 1]
 INSTRUCTS = ["DELIVER IN PERSON", "COLLECT COD", "NONE", "TAKE BACK RETURN"]
+COLORS = ["almond", "antique", "aquamarine", "azure", "beige", "bisque",
+          "black", "blanched", "blue", "blush", "brown", "burlywood",
+          "chartreuse", "chiffon", "chocolate", "coral", "cornflower",
+          "cream", "cyan", "dark", "deep", "dim", "dodger", "drab", "firebrick",
+          "floral", "forest", "frosted", "gainsboro", "ghost", "gold",
+          "goldenrod", "green", "grey", "honeydew", "hot", "indian", "ivory",
+          "khaki", "lace", "lavender", "lawn", "lemon", "light", "lime",
+          "linen", "magenta", "maroon", "medium", "metallic", "midnight",
+          "mint", "misty", "moccasin", "navajo", "navy", "olive", "orange",
+          "orchid", "pale", "papaya", "peach", "peru", "pink", "plum",
+          "powder", "puff", "purple", "red", "rose", "rosy", "royal",
+          "saddle", "salmon", "sandy", "seashell", "sienna", "sky", "slate",
+          "smoke", "snow", "spring", "steel", "tan", "thistle", "tomato",
+          "turquoise", "violet", "wheat", "white", "yellow"]
 N_NATIONS = len(NATIONS)
 
 LINEITEM = Schema([StructField("l_orderkey", LongType),
@@ -116,12 +130,20 @@ PART = Schema([StructField("p_partkey", LongType),
                StructField("p_brand", StringType),
                StructField("p_type", StringType),
                StructField("p_container", StringType),
-               StructField("p_size", LongType)])
+               StructField("p_size", LongType),
+               StructField("p_name", StringType),
+               StructField("p_mfgr", StringType)])
 SUPPLIER = Schema([StructField("s_suppkey", LongType),
                    StructField("s_name", StringType),
                    StructField("s_address", StringType),
                    StructField("s_nationkey", LongType),
-                   StructField("s_phone", StringType)])
+                   StructField("s_phone", StringType),
+                   StructField("s_acctbal", DoubleType),
+                   StructField("s_comment", StringType)])
+PARTSUPP = Schema([StructField("ps_partkey", LongType),
+                   StructField("ps_suppkey", LongType),
+                   StructField("ps_availqty", LongType),
+                   StructField("ps_supplycost", DoubleType)])
 NATION = Schema([StructField("n_nationkey", LongType),
                  StructField("n_name", StringType),
                  StructField("n_regionkey", LongType)])
@@ -129,7 +151,7 @@ REGION = Schema([StructField("r_regionkey", LongType),
                  StructField("r_name", StringType)])
 SCHEMAS = {"lineitem": LINEITEM, "orders": ORDERS, "customer": CUSTOMER,
            "part": PART, "supplier": SUPPLIER, "nation": NATION,
-           "region": REGION}
+           "region": REGION, "partsupp": PARTSUPP}
 
 
 def _numbered(prefix: str, keys: np.ndarray, width: int) -> np.ndarray:
@@ -197,21 +219,28 @@ def _phone_nation(phone: np.ndarray) -> np.ndarray:
 
 
 def _comments(rng: np.random.Generator, n: int) -> np.ndarray:
-    """`n` comments of 2-5 WORDS joined by single spaces, written into
-    one byte matrix a word slot at a time."""
-    lens = np.array([len(w) for w in WORDS])
-    wmax = int(lens.max())
-    table = np.zeros((len(WORDS), wmax), np.uint8)
-    for i, w in enumerate(WORDS):
-        table[i, :len(w)] = np.frombuffer(w.encode(), np.uint8)
+    """`n` comments of 2-5 WORDS joined by single spaces."""
     k = rng.integers(2, 6, n)
     pick = rng.integers(0, len(WORDS), (n, 5), dtype=np.int8)
-    width = 5 * (wmax + 1) - 1
+    return _spelled(WORDS, pick, k)
+
+
+def _spelled(words: List[str], pick: np.ndarray, k) -> np.ndarray:
+    """Row i: the words `pick[i, :k[i]]` of `words` joined by single
+    spaces, written into one byte matrix a word slot at a time."""
+    n, slots = pick.shape
+    k = np.broadcast_to(k, (n,))
+    lens = np.array([len(w) for w in words])
+    wmax = int(lens.max())
+    table = np.zeros((len(words), wmax), np.uint8)
+    for i, w in enumerate(words):
+        table[i, :len(w)] = np.frombuffer(w.encode(), np.uint8)
+    width = slots * (wmax + 1) - 1
     out = np.zeros(n * width, np.uint8)
     # the flat index of each row's next byte; a word is written with its
     # zero padding, which the next slot overwrites
     at = np.arange(n, dtype=np.int64) * width
-    for slot in range(5):
+    for slot in range(slots):
         live = np.flatnonzero(slot < k)
         if slot:
             out[at[live]] = ord(" ")
@@ -220,6 +249,21 @@ def _comments(rng: np.random.Generator, n: int) -> np.ndarray:
         out[at[live, None] + np.arange(wmax)] = table[w]
         at[live] += lens[w]
     return _as_bytes(out.reshape(n, width))
+
+
+def _distinct(rng: np.random.Generator, n: int, k: int, m: int
+              ) -> np.ndarray:
+    """`n` rows of `k` distinct ints of [0, m), every ordered choice
+    equally likely (rng.choice(m, k, replace=False) per row, without the
+    per-row loop): the j-th is drawn among the m - j values left and
+    moved past the earlier ones at or below it."""
+    picks = np.zeros((n, k), np.int64)
+    for j in range(k):
+        v = rng.integers(0, m - j, n)
+        for taken in np.sort(picks[:, :j], axis=1).T:
+            v += v >= taken
+        picks[:, j] = v
+    return picks
 
 
 def _joined(rng: np.random.Generator, n: int, *words: List[str]
@@ -253,7 +297,7 @@ def _part(rng: np.random.Generator, n: int) -> Dict[str, np.ndarray]:
 
 def generate(sf: float, seed: int = 42) -> Dict[str, Dict[str, np.ndarray]]:
     """{table: {column: numpy array}} for lineitem, orders, customer,
-    part, supplier, nation and region."""
+    part, supplier, nation, region and partsupp."""
     rng = np.random.default_rng(seed)
     n_ord = max(100, int(1_500_000 * sf))
     o_date = rng.integers(START, END - 151, n_ord, dtype=np.int32)
@@ -334,6 +378,23 @@ def generate(sf: float, seed: int = 42) -> Dict[str, Dict[str, np.ndarray]]:
     lineitem["l_shipinstruct"] = np.array(INSTRUCTS, dtype="S")[
         rng6.integers(0, len(INSTRUCTS), n, dtype=np.int8)]
     part["p_size"] = rng6.integers(1, 51, n_part, dtype=np.int64)
+    # partsupp and the columns q2, q9, q11, q16 and q20 read from a
+    # seventh: p_name 5 distinct COLORS, p_mfgr, then partsupp's 4 rows a
+    # part, then s_acctbal and s_comment
+    rng7 = np.random.default_rng([seed, 6])
+    part["p_name"] = _spelled(COLORS, _distinct(rng7, n_part, 5,
+                                                len(COLORS)), 5)
+    part["p_mfgr"] = _numbered("Manufacturer#",
+                               rng7.integers(1, 6, n_part), 1)
+    partsupp = {
+        "ps_partkey": np.repeat(part["p_partkey"], 4),
+        "ps_suppkey": rng7.integers(1, n_supp + 1, 4 * n_part,
+                                    dtype=np.int64),
+        "ps_availqty": rng7.integers(1, 10_000, 4 * n_part, dtype=np.int64),
+        "ps_supplycost": np.round(rng7.uniform(1.0, 1000.0, 4 * n_part), 2)}
+    supplier["s_acctbal"] = np.round(rng7.uniform(-999.99, 9999.99, n_supp),
+                                     2)
+    supplier["s_comment"] = _comments(rng7, n_supp)
     nation = {"n_nationkey": np.arange(N_NATIONS, dtype=np.int64),
               "n_name": np.array(NATIONS, dtype="S"),
               "n_regionkey": np.array(NATION_REGION, dtype=np.int64)}
@@ -341,7 +402,7 @@ def generate(sf: float, seed: int = 42) -> Dict[str, Dict[str, np.ndarray]]:
               "r_name": np.array(REGIONS, dtype="S")}
     return {"lineitem": lineitem, "orders": orders, "customer": customer,
             "part": part, "supplier": supplier, "nation": nation,
-            "region": region}
+            "region": region, "partsupp": partsupp}
 
 
 def generate_lineitem(sf: float, seed: int = 42) -> Dict[str, np.ndarray]:
@@ -642,12 +703,202 @@ def q21(t):
             .limit(100))
 
 
+def q2(t):
+    """TPC-H q2: for each size-15 BRASS part, the EUROPE suppliers that
+    offer it at its lowest EUROPE cost (a per-part minimum joined back on
+    two keys), the 100 with the highest balance first."""
+    part = t["part"].filter((col("p_size") == 15)
+                            & col("p_type").endswith("BRASS"))
+    europe = (t["region"].filter(col("r_name") == "EUROPE")
+              .join(t["nation"],
+                    on=col("r_regionkey") == col("n_regionkey"))
+              .join(t["supplier"],
+                    on=col("n_nationkey") == col("s_nationkey")))
+    ps = t["partsupp"].join(europe,
+                            on=col("ps_suppkey") == col("s_suppkey"))
+    joined = part.join(ps, on=col("p_partkey") == col("ps_partkey"))
+    mins = (joined.group_by(col("p_partkey"))
+            .agg(F.min(col("ps_supplycost")).alias("min_cost"))
+            .select(col("p_partkey").alias("mk"), col("min_cost")))
+    return (joined.join(mins, on=(col("p_partkey") == col("mk"))
+                        & (col("ps_supplycost") == col("min_cost")))
+            .select(col("s_acctbal"), col("s_name"), col("n_name"),
+                    col("p_partkey"), col("p_mfgr"), col("s_address"),
+                    col("s_phone"), col("s_comment"))
+            .order_by(SortOrder(col("s_acctbal"), ascending=False),
+                      "n_name", "s_name", "p_partkey")
+            .limit(100))
+
+
+def q7(t):
+    """TPC-H q7: the discounted revenue of 1995-1996 lines shipped between
+    FRANCE and GERMANY, either way, by supplier nation, customer nation
+    and ship year (Year)."""
+    n1 = t["nation"].select(col("n_nationkey").alias("n1_key"),
+                            col("n_name").alias("supp_nation"))
+    n2 = t["nation"].select(col("n_nationkey").alias("n2_key"),
+                            col("n_name").alias("cust_nation"))
+    li = t["lineitem"].filter(col("l_shipdate").between("1995-01-01",
+                                                        "1996-12-31"))
+    joined = (li.join(t["supplier"], on=col("l_suppkey") == col("s_suppkey"))
+              .join(t["orders"], on=col("l_orderkey") == col("o_orderkey"))
+              .join(t["customer"], on=col("o_custkey") == col("c_custkey"))
+              .join(n1, on=col("s_nationkey") == col("n1_key"))
+              .join(n2, on=col("c_nationkey") == col("n2_key"))
+              .filter(((col("supp_nation") == "FRANCE")
+                       & (col("cust_nation") == "GERMANY"))
+                      | ((col("supp_nation") == "GERMANY")
+                         & (col("cust_nation") == "FRANCE"))))
+    return (joined
+            .with_column("l_year", F.year(col("l_shipdate")))
+            .with_column("volume", col("l_extendedprice")
+                         * (lit(1.0) - col("l_discount")))
+            .group_by(col("supp_nation"), col("cust_nation"), col("l_year"))
+            .agg(F.sum(col("volume")).alias("revenue"))
+            .order_by("supp_nation", "cust_nation", "l_year"))
+
+
+def q8(t):
+    """TPC-H q8: BRAZIL's share of the revenue of one part type sold to
+    AMERICA's customers, by order year (Year): a sum of a conditional
+    divided by a sum."""
+    n1 = t["nation"].select(col("n_nationkey").alias("n1_key"),
+                            col("n_regionkey").alias("n1_region"))
+    n2 = t["nation"].select(col("n_nationkey").alias("n2_key"),
+                            col("n_name").alias("supp_nation"))
+    america = t["region"].filter(col("r_name") == "AMERICA")
+    part = t["part"].filter(col("p_type") == "ECONOMY ANODIZED STEEL")
+    orders = t["orders"].filter(col("o_orderdate").between("1995-01-01",
+                                                           "1996-12-31"))
+    joined = (part.join(t["lineitem"],
+                        on=col("p_partkey") == col("l_partkey"))
+              .join(t["supplier"], on=col("l_suppkey") == col("s_suppkey"))
+              .join(orders, on=col("l_orderkey") == col("o_orderkey"))
+              .join(t["customer"], on=col("o_custkey") == col("c_custkey"))
+              .join(n1, on=col("c_nationkey") == col("n1_key"))
+              .join(america, on=col("n1_region") == col("r_regionkey"))
+              .join(n2, on=col("s_nationkey") == col("n2_key")))
+    vol = (joined
+           .with_column("o_year", F.year(col("o_orderdate")))
+           .with_column("volume", col("l_extendedprice")
+                        * (lit(1.0) - col("l_discount")))
+           .with_column("brazil_volume",
+                        F.when(col("supp_nation") == "BRAZIL",
+                               col("volume")).otherwise(0.0)))
+    return (vol.group_by(col("o_year"))
+            .agg((F.sum(col("brazil_volume"))
+                  / F.sum(col("volume"))).alias("mkt_share"))
+            .order_by("o_year"))
+
+
+def q9(t):
+    """TPC-H q9: the profit on "green" parts by supplier nation and order
+    year (Year), through a join to partsupp on two keys."""
+    part = t["part"].filter(col("p_name").contains("green"))
+    joined = (part.join(t["lineitem"],
+                        on=col("p_partkey") == col("l_partkey"))
+              .join(t["supplier"], on=col("l_suppkey") == col("s_suppkey"))
+              .join(t["partsupp"],
+                    on=(col("ps_partkey") == col("l_partkey"))
+                    & (col("ps_suppkey") == col("l_suppkey")))
+              .join(t["orders"], on=col("l_orderkey") == col("o_orderkey"))
+              .join(t["nation"], on=col("s_nationkey") == col("n_nationkey")))
+    return (joined
+            .with_column("o_year", F.year(col("o_orderdate")))
+            .with_column("amount",
+                         col("l_extendedprice")
+                         * (lit(1.0) - col("l_discount"))
+                         - col("ps_supplycost") * col("l_quantity"))
+            .group_by(col("n_name"), col("o_year"))
+            .agg(F.sum(col("amount")).alias("sum_profit"))
+            .order_by("n_name", SortOrder(col("o_year"), ascending=False)))
+
+
+# the share of GERMANY's stock value a part must pass in q11 as
+# benchmarks/tpch/queries.py writes it; TPC-H's own is 0.0001 / SF
+Q11_FRACTION = 0.0001
+
+
+def q11(t, fraction: float = Q11_FRACTION):
+    """TPC-H q11: the parts whose GERMANY stock value passes `fraction`
+    of the whole, whose sum is collected first, in a query of its own."""
+    germany = t["nation"].filter(col("n_name") == "GERMANY")
+    ps = (t["partsupp"]
+          .join(t["supplier"], on=col("ps_suppkey") == col("s_suppkey"))
+          .join(germany, on=col("s_nationkey") == col("n_nationkey"))
+          .with_column("value", col("ps_supplycost") * col("ps_availqty")))
+    total = ps.agg(F.sum(col("value")).alias("tv")).collect()[0][0] or 0.0
+    return (ps.group_by(col("ps_partkey"))
+            .agg(F.sum(col("value")).alias("value"))
+            .filter(col("value") > total * fraction)
+            .order_by(SortOrder(col("value"), ascending=False)))
+
+
+Q16_SIZES = (49, 14, 23, 45, 19, 3, 36, 9)
+
+
+def q16(t):
+    """TPC-H q16: how many suppliers without complaints offer parts of
+    each brand, type and size (a left_anti join, then a distinct count as
+    two levels of grouping by string keys)."""
+    part = t["part"].filter(
+        (col("p_brand") != "Brand#45")
+        & ~col("p_type").startswith("MEDIUM POLISHED")
+        & col("p_size").isin(*Q16_SIZES))
+    bad_supp = t["supplier"].filter(
+        col("s_comment").contains("Customer")
+        & col("s_comment").contains("Complaints"))
+    ps = (t["partsupp"]
+          .join(bad_supp, on=col("ps_suppkey") == col("s_suppkey"),
+                how="left_anti")
+          .join(part, on=col("ps_partkey") == col("p_partkey")))
+    distinct_ps = (ps.group_by(col("p_brand"), col("p_type"), col("p_size"),
+                               col("ps_suppkey"))
+                   .agg(F.count(lit(1)).alias("_c")))
+    return (distinct_ps.group_by(col("p_brand"), col("p_type"),
+                                 col("p_size"))
+            .agg(F.count(lit(1)).alias("supplier_cnt"))
+            .order_by(SortOrder(col("supplier_cnt"), ascending=False),
+                      "p_brand", "p_type", "p_size"))
+
+
+def q20(t, prefix: str = "forest", nation: str = "CANADA"):
+    """TPC-H q20: the suppliers of `nation` that hold more than half of
+    1994's shipped quantity of a part whose name starts with `prefix` (a
+    two-key aggregate of the year's lines joined to partsupp on both
+    keys).  The JAX datagen draws a line's supplier apart from its
+    part's partsupp rows, so a line meets one of them with probability
+    4 / suppliers: about 365 (part, supplier) pairs of 1994 match at any
+    scale, ~4 of them "forest" parts, and CANADA keeps one with
+    probability ~0.15.  `prefix=""` keeps every part."""
+    forest_parts = t["part"].filter(col("p_name").startswith(prefix)) \
+        .select(col("p_partkey").alias("fp_key"))
+    li94 = t["lineitem"].filter((col("l_shipdate") >= "1994-01-01")
+                                & (col("l_shipdate") < "1995-01-01"))
+    half_qty = (li94.group_by(col("l_partkey"), col("l_suppkey"))
+                .agg((F.sum(col("l_quantity")) * 0.5).alias("half_qty")))
+    ps = (t["partsupp"]
+          .join(forest_parts, on=col("ps_partkey") == col("fp_key"),
+                how="left_semi")
+          .join(half_qty, on=(col("ps_partkey") == col("l_partkey"))
+                & (col("ps_suppkey") == col("l_suppkey")))
+          .filter(col("ps_availqty") > col("half_qty")))
+    canada = t["nation"].filter(col("n_name") == nation)
+    return (t["supplier"]
+            .join(ps, on=col("s_suppkey") == col("ps_suppkey"),
+                  how="left_semi")
+            .join(canada, on=col("s_nationkey") == col("n_nationkey"))
+            .select(col("s_name"), col("s_address"))
+            .order_by("s_name"))
+
+
 # the lineitem-only queries take the lineitem DataFrame, the joins a dict
 # of DataFrames by table name
 QUERIES = {"q1": q1, "q6": q6, "q18_inner": q18_inner}
 JOIN_QUERIES = {"q3": q3, "q4": q4, "q12": q12, "q13": q13, "q14": q14,
                 "q17": q17, "q18": q18, "q22": q22, "q5": q5, "q10": q10,
-                "q15": q15, "q19": q19, "q21": q21}
+                "q15": q15, "q19": q19, "q21": q21, "q2": q2, "q7": q7,
+                "q8": q8, "q9": q9, "q11": q11, "q16": q16, "q20": q20}
 
 
 # --------------------------------------------------------------------------
@@ -739,24 +990,21 @@ def _text(a: np.ndarray) -> np.ndarray:
 
 
 def oracle_q1(t: Dict[str, np.ndarray]) -> List[tuple]:
+    """q1's groups.  The flags are one byte each, so a group is keyed by
+    the two bytes as one int (no string work over the 60 M lines)."""
     m = t["l_shipdate"] <= days("1998-09-02")
-    rf, ls = _text(t["l_returnflag"][m]), _text(t["l_linestatus"][m])
-    keys, inv = np.unique(np.char.add(np.char.add(rf, "|"), ls),
-                          return_inverse=True)
+    rf = t["l_returnflag"][m].view(np.uint8).astype(np.int64)
+    ls = t["l_linestatus"][m].view(np.uint8)
+    keys, inv = np.unique(rf * 256 + ls, return_inverse=True)
     qty, price = t["l_quantity"][m], t["l_extendedprice"][m]
     dsc, tax = t["l_discount"][m], t["l_tax"][m]
     disc = price * (1.0 - dsc)
-
-    def s(w):
-        return np.bincount(inv, weights=w, minlength=len(keys))
+    sums = [np.bincount(inv, weights=w, minlength=len(keys))
+            for w in (qty, price, disc, disc * (1.0 + tax), dsc)]
     cnt = np.bincount(inv, minlength=len(keys))
-    rows = []
-    for i, k in enumerate(keys):
-        a, b = str(k).split("|")
-        rows.append((a, b, s(qty)[i], s(price)[i], s(disc)[i],
-                     s(disc * (1.0 + tax))[i], s(qty)[i] / cnt[i],
-                     s(price)[i] / cnt[i], s(dsc)[i] / cnt[i], int(cnt[i])))
-    return rows
+    return [(chr(k // 256), chr(k % 256), q, p, d, c, q / n, p / n,
+             x / n, int(n))
+            for k, q, p, d, c, x, n in zip(keys, *sums, cnt)]
 
 
 def oracle_q6(t: Dict[str, np.ndarray]) -> List[tuple]:
@@ -1040,15 +1288,228 @@ def oracle_q21(t) -> List[tuple]:
     return [(str(names[i]), int(count[i])) for i in order]
 
 
+def _year(d: np.ndarray) -> np.ndarray:
+    """The year of each day since 1970-01-01."""
+    return d.astype("datetime64[D]").astype("datetime64[Y]").astype(
+        np.int64) + 1970
+
+
+def _nation_of(t, keys: np.ndarray) -> np.ndarray:
+    """The n_name text of each nation key."""
+    n = t["nation"]
+    return _text(n["n_name"])[_row_of(n["n_nationkey"], keys)]
+
+
+def _keys_of(t, table: str, key: str, name_col: str, name: str
+             ) -> np.ndarray:
+    """The `key` values of the rows of `table` whose `name_col` is
+    `name`."""
+    r = t[table]
+    return r[key][r[name_col] == name.encode()]
+
+
+def oracle_q2(t) -> List[tuple]:
+    """Every row of q2's join in q2's order; q2 keeps the first 100
+    (compare with top_rows_match)."""
+    p, s, ps = t["part"], t["supplier"], t["partsupp"]
+    parts = p["p_partkey"][(p["p_size"] == 15)
+                           & np.char.endswith(p["p_type"], b"BRASS")]
+    europe = _keys_of(t, "region", "r_regionkey", "r_name", "EUROPE")
+    n = t["nation"]
+    nations = n["n_nationkey"][_in_keys(europe, n["n_regionkey"])]
+    supp = s["s_suppkey"][_in_keys(nations, s["s_nationkey"])]
+    m = np.flatnonzero(_in_keys(parts, ps["ps_partkey"])
+                       & _in_keys(supp, ps["ps_suppkey"]))
+    cost = ps["ps_supplycost"][m]
+    keys, inv = np.unique(ps["ps_partkey"][m], return_inverse=True)
+    low = np.full(len(keys), np.inf)
+    np.minimum.at(low, inv, cost)
+    m = m[cost == low[inv]]
+    srow = _row_of(s["s_suppkey"], ps["ps_suppkey"][m])
+    prow = _row_of(p["p_partkey"], ps["ps_partkey"][m])
+    acct, pkey = s["s_acctbal"][srow], ps["ps_partkey"][m]
+    nname = _nation_of(t, s["s_nationkey"][srow])
+    sname, addr, phone, comment = (_text(s[k][srow]) for k in (
+        "s_name", "s_address", "s_phone", "s_comment"))
+    mfgr = _text(p["p_mfgr"][prow])
+    return [(float(acct[i]), str(sname[i]), str(nname[i]), int(pkey[i]),
+             str(mfgr[i]), str(addr[i]), str(phone[i]), str(comment[i]))
+            for i in np.lexsort((pkey, sname, nname, -acct))]
+
+
+def oracle_q7(t) -> List[tuple]:
+    s, o, c, li = t["supplier"], t["orders"], t["customer"], t["lineitem"]
+    sd = li["l_shipdate"]
+    m = np.flatnonzero((sd >= days("1995-01-01")) & (sd <= days("1996-12-31")))
+    m = m[_in_keys(s["s_suppkey"], li["l_suppkey"][m])
+          & _in_keys(o["o_orderkey"], li["l_orderkey"][m])]
+    cust = o["o_custkey"][_row_of(o["o_orderkey"], li["l_orderkey"][m])]
+    has_cust = _in_keys(c["c_custkey"], cust)
+    m, cust = m[has_cust], cust[has_cust]
+    supp_nation = s["s_nationkey"][_row_of(s["s_suppkey"],
+                                           li["l_suppkey"][m])]
+    cust_nation = c["c_nationkey"][_row_of(c["c_custkey"], cust)]
+    fr, de = (_keys_of(t, "nation", "n_nationkey", "n_name", x)
+              for x in ("FRANCE", "GERMANY"))
+    keep = ((np.isin(supp_nation, fr) & np.isin(cust_nation, de))
+            | (np.isin(supp_nation, de) & np.isin(cust_nation, fr)))
+    m, supp_nation, cust_nation = (a[keep] for a in (m, supp_nation,
+                                                     cust_nation))
+    year = _year(sd[m])
+    groups, inv = np.unique(np.stack([supp_nation, cust_nation, year]),
+                            axis=1, return_inverse=True)
+    rev = np.bincount(inv.reshape(-1), weights=_revenue(li, m),
+                      minlength=groups.shape[1])
+    sn, cn = _nation_of(t, groups[0]), _nation_of(t, groups[1])
+    return [(str(sn[i]), str(cn[i]), int(groups[2, i]), float(rev[i]))
+            for i in np.lexsort((groups[2], cn, sn))]
+
+
+def oracle_q8(t) -> List[tuple]:
+    p, s, o, c, li = (t[k] for k in ("part", "supplier", "orders",
+                                     "customer", "lineitem"))
+    parts = p["p_partkey"][p["p_type"] == b"ECONOMY ANODIZED STEEL"]
+    od = o["o_orderdate"]
+    okey = o["o_orderkey"][(od >= days("1995-01-01"))
+                           & (od <= days("1996-12-31"))]
+    m = np.flatnonzero(_in_keys(parts, li["l_partkey"]))
+    m = m[_in_keys(s["s_suppkey"], li["l_suppkey"][m])
+          & _in_keys(okey, li["l_orderkey"][m])]
+    orow = _row_of(o["o_orderkey"], li["l_orderkey"][m])
+    m, orow = (a[_in_keys(c["c_custkey"], o["o_custkey"][orow])]
+               for a in (m, orow))
+    cust_nation = c["c_nationkey"][_row_of(c["c_custkey"],
+                                           o["o_custkey"][orow])]
+    n = t["nation"]
+    america = _keys_of(t, "region", "r_regionkey", "r_name", "AMERICA")
+    keep = _in_keys(n["n_nationkey"][_in_keys(america, n["n_regionkey"])],
+                    cust_nation)
+    m, orow = m[keep], orow[keep]
+    supp_nation = _nation_of(t, s["s_nationkey"][_row_of(
+        s["s_suppkey"], li["l_suppkey"][m])])
+    vol = _revenue(li, m)
+    years, inv = np.unique(_year(od[orow]), return_inverse=True)
+    brazil = np.bincount(inv, weights=np.where(supp_nation == "BRAZIL", vol,
+                                               0.0), minlength=len(years))
+    total = np.bincount(inv, weights=vol, minlength=len(years))
+    return [(int(y), float(b / v)) for y, b, v in zip(years, brazil, total)]
+
+
+def oracle_q9(t) -> List[tuple]:
+    p, s, ps, o, li = (t[k] for k in ("part", "supplier", "partsupp",
+                                      "orders", "lineitem"))
+    parts = p["p_partkey"][np.char.find(p["p_name"], b"green") >= 0]
+    m = np.flatnonzero(_in_keys(parts, li["l_partkey"]))
+    m = m[_in_keys(s["s_suppkey"], li["l_suppkey"][m])
+          & _in_keys(o["o_orderkey"], li["l_orderkey"][m])]
+    # the partsupp rows of each line's (part, supplier), as many as there
+    # are: a part may list one supplier twice
+    width = int(max(ps["ps_suppkey"].max(initial=0),
+                    li["l_suppkey"].max(initial=0))) + 1
+    order = np.argsort(ps["ps_partkey"] * width + ps["ps_suppkey"],
+                       kind="stable")
+    pairs = (ps["ps_partkey"] * width + ps["ps_suppkey"])[order]
+    want = li["l_partkey"][m] * width + li["l_suppkey"][m]
+    lo = np.searchsorted(pairs, want, "left")
+    hits = np.searchsorted(pairs, want, "right") - lo
+    m = np.repeat(m, hits)
+    psrow = order[np.repeat(lo, hits) + (np.arange(hits.sum())
+                                         - np.repeat(np.cumsum(hits) - hits,
+                                                     hits))]
+    nation = s["s_nationkey"][_row_of(s["s_suppkey"], li["l_suppkey"][m])]
+    has_nation = _in_keys(t["nation"]["n_nationkey"], nation)
+    m, psrow, nation = m[has_nation], psrow[has_nation], nation[has_nation]
+    year = _year(o["o_orderdate"][_row_of(o["o_orderkey"],
+                                          li["l_orderkey"][m])])
+    amount = (_revenue(li, m)
+              - ps["ps_supplycost"][psrow] * li["l_quantity"][m])
+    groups, inv = np.unique(np.stack([nation, year]), axis=1,
+                            return_inverse=True)
+    total = np.bincount(inv.reshape(-1), weights=amount,
+                        minlength=groups.shape[1])
+    gname = _nation_of(t, groups[0])
+    return [(str(gname[i]), int(groups[1, i]), float(total[i]))
+            for i in np.lexsort((-groups[1], gname))]
+
+
+def oracle_q11(t, fraction: float = Q11_FRACTION) -> List[tuple]:
+    """q11's rows.  The threshold is `fraction` of the oracle's own
+    total, as the query's is of its own."""
+    s, ps = t["supplier"], t["partsupp"]
+    germany = _keys_of(t, "nation", "n_nationkey", "n_name", "GERMANY")
+    supp = s["s_suppkey"][_in_keys(germany, s["s_nationkey"])]
+    m = np.flatnonzero(_in_keys(supp, ps["ps_suppkey"]))
+    value = ps["ps_supplycost"][m] * ps["ps_availqty"][m]
+    total = float(value.sum())
+    keys, inv = np.unique(ps["ps_partkey"][m], return_inverse=True)
+    sums = np.bincount(inv, weights=value, minlength=len(keys))
+    keep = np.flatnonzero(sums > total * fraction)
+    return [(int(keys[i]), float(sums[i]))
+            for i in keep[np.argsort(-sums[keep], kind="stable")]]
+
+
+def oracle_q16(t) -> List[tuple]:
+    p, s, ps = t["part"], t["supplier"], t["partsupp"]
+    pm = ((p["p_brand"] != b"Brand#45")
+          & ~np.char.startswith(p["p_type"], b"MEDIUM POLISHED")
+          & np.isin(p["p_size"], Q16_SIZES))
+    sc = s["s_comment"]
+    bad = s["s_suppkey"][(np.char.find(sc, b"Customer") >= 0)
+                         & (np.char.find(sc, b"Complaints") >= 0)]
+    m = np.flatnonzero(~_in_keys(bad, ps["ps_suppkey"])
+                       & _in_keys(p["p_partkey"][pm], ps["ps_partkey"]))
+    prow = _row_of(p["p_partkey"], ps["ps_partkey"][m])
+    # (brand, type, size) as one code that sorts as the three keys do
+    brands, bcode = np.unique(p["p_brand"], return_inverse=True)
+    types, tcode = np.unique(p["p_type"], return_inverse=True)
+    sizes = int(p["p_size"].max(initial=0)) + 1
+    code = (bcode[prow] * len(types) + tcode[prow]) * sizes \
+        + p["p_size"][prow]
+    width = int(ps["ps_suppkey"].max(initial=0)) + 1
+    pairs = np.unique(code * width + ps["ps_suppkey"][m])
+    groups, count = np.unique(pairs // width, return_counts=True)
+    size, bt = groups % sizes, groups // sizes
+    b, ty = _text(brands[bt // len(types)]), _text(types[bt % len(types)])
+    return [(str(b[i]), str(ty[i]), int(size[i]), int(count[i]))
+            for i in np.lexsort((size, ty, b, -count))]
+
+
+def oracle_q20(t, prefix: str = "forest",
+               nation: str = "CANADA") -> List[tuple]:
+    p, s, ps, li = t["part"], t["supplier"], t["partsupp"], t["lineitem"]
+    parts = p["p_partkey"][np.char.startswith(p["p_name"], prefix.encode())]
+    sd = li["l_shipdate"]
+    m = np.flatnonzero((sd >= days("1994-01-01")) & (sd < days("1995-01-01")))
+    width = int(max(ps["ps_suppkey"].max(initial=0),
+                    li["l_suppkey"].max(initial=0))) + 1
+    pairs, inv = np.unique(li["l_partkey"][m] * width + li["l_suppkey"][m],
+                           return_inverse=True)
+    half = np.bincount(inv, weights=li["l_quantity"][m],
+                       minlength=len(pairs)) * 0.5
+    psm = np.flatnonzero(_in_keys(parts, ps["ps_partkey"]))
+    want = ps["ps_partkey"][psm] * width + ps["ps_suppkey"][psm]
+    hit = _in_keys(pairs, want)
+    psm, want = psm[hit], want[hit]
+    psm = psm[ps["ps_availqty"][psm] > half[np.searchsorted(pairs, want)]]
+    keys = _keys_of(t, "nation", "n_nationkey", "n_name", nation)
+    keep = np.flatnonzero(_in_keys(ps["ps_suppkey"][psm], s["s_suppkey"])
+                          & _in_keys(keys, s["s_nationkey"]))
+    name, addr = _text(s["s_name"][keep]), _text(s["s_address"][keep])
+    return [(str(name[i]), str(addr[i])) for i in np.argsort(name,
+                                                             kind="stable")]
+
+
 ORACLES = {"q1": oracle_q1, "q6": oracle_q6, "q18_inner": oracle_q18_inner,
            "q3": oracle_q3, "q4": oracle_q4, "q5": oracle_q5,
            "q10": oracle_q10, "q12": oracle_q12, "q13": oracle_q13,
            "q14": oracle_q14, "q15": oracle_q15, "q17": oracle_q17,
            "q18": oracle_q18, "q19": oracle_q19, "q21": oracle_q21,
-           "q22": oracle_q22}
+           "q22": oracle_q22, "q2": oracle_q2, "q7": oracle_q7,
+           "q8": oracle_q8, "q9": oracle_q9, "q11": oracle_q11,
+           "q16": oracle_q16, "q20": oracle_q20}
 # how many of the oracle's rows each top-N query keeps, and the column it
 # orders by first
-TOP_N = {"q3": (10, 3), "q10": (20, 7), "q18": (100, 4)}
+TOP_N = {"q3": (10, 3), "q10": (20, 7), "q18": (100, 4), "q2": (100, 0)}
 
 
 def rows_match(want: List[tuple], got: List[tuple],

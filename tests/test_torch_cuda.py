@@ -13,6 +13,7 @@ import pytest
 import torch
 
 import test_torch_arithmetic as XA
+import test_torch_datetime as XD
 import test_torch_expressions as X
 import test_torch_strings as XS
 from spark_rapids_tpu_torch.ops import kernels as K
@@ -697,6 +698,53 @@ def test_supplier_queries_on_card_match_cpu(dev, plan):
         out[str(device)] = [tpch.JOIN_QUERIES[n](d).collect() for n in names]
     for name, want, got in zip(names, out["cpu"], out[str(dev)]):
         oracle = tpch.ORACLES[name](t)
+        assert got and got[0][0] is not None, name
+        if name in tpch.TOP_N:  # rows that tie may trade places
+            assert tpch.top_rows_match(oracle, want, *tpch.TOP_N[name])
+            assert tpch.top_rows_match(oracle, got, *tpch.TOP_N[name])
+        else:
+            assert tpch.rows_match(want, got), name
+            assert tpch.rows_match(oracle, got), name
+
+
+@pytest.mark.parametrize("cls", XD.CLASSES)
+def test_date_parts_on_card_match_cpu(dev, cls):
+    """Each date part of tests/test_torch_datetime.py over each of its
+    seeded columns (dates of 1600-2400, pre-epoch timestamps, int, long,
+    double and boolean children, with nulls) on the card and on the CPU:
+    the same values and null masks."""
+    data = XD.table()
+    for name in XD.TYPES:
+        (want, want_ok), (got, got_ok) = (XD.port_part(cls, data, name, d)
+                                          for d in ("cpu", dev))
+        assert np.array_equal(got_ok, want_ok), name
+        assert np.array_equal(got, want), name
+
+
+@pytest.mark.parametrize("plan", ["default", "hash_joins"])
+def test_partsupp_queries_on_card_match_cpu(dev, plan):
+    """TPC-H q2 (a per-part minimum joined back on two keys, a top 100),
+    q7, q8 and q9 (Year of a date; q9's join to partsupp on two keys),
+    q11 (a sum collected mid-query), q16 (a left_anti join, two levels of
+    grouping by string keys) and q20 at both part-name prefixes (a
+    two-key aggregate joined to partsupp on both keys) at SF0.03, where
+    q20 keeps some CANADA suppliers, on the card and on the CPU, over
+    several probe batches, each equal to its numpy oracle."""
+    from spark_rapids_tpu_torch import TpuSession, tpch
+    t = tpch.generate(0.03)
+    conf = {"spark.rapids.sql.variableFloatAgg.enabled": "true",
+            "spark.rapids.sql.reader.batchSizeRows": "30000",
+            **(_HASH_JOINS if plan == "hash_joins" else {})}
+    cases = [("q2", ()), ("q7", ()), ("q8", ()), ("q9", ()), ("q11", ()),
+             ("q16", ()), ("q20", ()), ("q20", ("",))]
+    out = {}
+    for device in ("cpu", dev):
+        s = TpuSession(conf, device=device)
+        d = {n: s.from_numpy(v, tpch.SCHEMAS[n]) for n, v in t.items()}
+        out[str(device)] = [tpch.JOIN_QUERIES[n](d, *a).collect()
+                            for n, a in cases]
+    for (name, args), want, got in zip(cases, out["cpu"], out[str(dev)]):
+        oracle = tpch.ORACLES[name](t, *args)
         assert got and got[0][0] is not None, name
         if name in tpch.TOP_N:  # rows that tie may trade places
             assert tpch.top_rows_match(oracle, want, *tpch.TOP_N[name])

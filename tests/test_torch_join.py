@@ -415,3 +415,145 @@ def test_scan_size_estimate_equals_pyarrow_nbytes():
         df = TpuSession(device="cpu").from_numpy(data, PT.Schema(
             [PT.StructField(k, types[t][1]) for k, t in fields]))
         assert df.plan.nbytes == want, n
+
+
+class _Watched:
+    """Wraps an exec's child so that it yields each batch as fresh tensors
+    and keeps a weak reference to one of them: `watch` picks the tensor
+    (a column's data, or the selection mask) that only the input batch
+    holds.  Before it makes the next batch, the last one must be gone:
+    nothing above holds its input while the stream works."""
+
+    def __init__(self, node, watch):
+        import gc
+        import weakref
+
+        import torch
+        from spark_rapids_tpu_torch.exec.base import ExecNode
+        seen = self.seen = []
+
+        class Fresh(ExecNode):
+            schema = node.children[0].schema
+
+            def execute(self, ctx):
+                for b in self.children[0].execute(ctx):
+                    gc.collect()
+                    assert not seen or seen[-1]() is None, len(seen)
+                    fresh = [b.take(torch.arange(b.capacity))]
+                    seen.append(weakref.ref(watch(fresh[0])))
+                    yield fresh.pop()
+        node.children[0] = Fresh(node.children[0])
+
+
+def _assert_holds_no_input(node, watched, session):
+    """Runs `node`; while each output is held, the input batch behind it
+    is gone.  Returns the live rows."""
+    import gc
+
+    from spark_rapids_tpu_torch.exec.base import ExecContext
+    rows = 0
+    for out in node.execute(ExecContext(session.conf, session.device)):
+        gc.collect()
+        assert watched.seen[-1]() is None, len(watched.seen)
+        rows += int(out.num_rows())
+    return rows
+
+
+def _stream_session():
+    import numpy as np
+    s = TpuSession({"spark.rapids.sql.reader.batchSizeRows": "64"},
+                   device="cpu")
+    keys = np.arange(256, dtype=np.int64)
+    return s, keys, s.from_numpy({"k": keys, "v": keys * 2})
+
+
+def test_a_join_holds_no_stream_batch_while_its_consumer_runs():
+    """Once a join has handed on the output of a stream batch, neither the
+    join nor the stream below it keeps that batch alive, so a chain of
+    joins holds two generations of batches, not three (at SF10, q7's five
+    joins of ~18 M lines carry every column and did not fit three)."""
+    s, keys, df = _stream_session()
+    df = df.join(s.from_numpy({"k2": keys[::2]}),
+                 on=pcol("k") == pcol("k2"))
+    join = df.physical_plan()
+    while not isinstance(join, TpuHashJoinExec):
+        join = join.children[0]
+    watched = _Watched(join, lambda b: b.columns[0].data)
+    assert _assert_holds_no_input(join, watched, s) == 128
+    assert len(watched.seen) == 4
+
+
+@pytest.mark.parametrize("kind", ["project", "filter", "reorder"])
+def test_a_streaming_exec_holds_no_input_batch_while_its_consumer_runs(
+        kind):
+    """The same for the other execs that map a stream batch by batch: a
+    projection drops its input's other columns, a filter its input's
+    selection mask, and the reorder after a swapped join the columns it
+    leaves out, as soon as the output is handed on."""
+    from spark_rapids_tpu_torch.exec.basic import (TpuFilterExec,
+                                                   TpuProjectExec)
+    s, _, df = _stream_session()
+    if kind == "project":
+        node = df.select((pcol("v") + 1).alias("w")).physical_plan()
+        want = 256
+    elif kind == "filter":
+        node = df.filter(pcol("k") < 100).physical_plan()
+        want = 100
+    else:
+        scan = df.physical_plan()
+        node = TpuReorderColumnsExec(scan, [1], PT.Schema(
+            [scan.schema[1]]))
+        want = 256
+    assert isinstance(node, {"project": TpuProjectExec,
+                             "filter": TpuFilterExec,
+                             "reorder": TpuReorderColumnsExec}[kind])
+    watched = _Watched(node, (lambda b: b.sel) if kind == "filter"
+                       else (lambda b: b.columns[0].data))
+    assert _assert_holds_no_input(node, watched, s) == want
+    assert len(watched.seen) == 4
+
+
+@pytest.mark.parametrize("kind", ["aggregate", "to_host"])
+def test_a_consumer_holds_no_input_batch_while_its_stream_works(kind):
+    """An aggregate and the device-to-host edge drop each input batch
+    before they ask the stream for the next (`_Watched` checks it)."""
+    from spark_rapids_tpu_torch.exec.aggregate import TpuHashAggregateExec
+    from spark_rapids_tpu_torch.exec.base import ExecContext
+    from spark_rapids_tpu_torch.exec.basic import DeviceToHostExec
+    s, _, df = _stream_session()
+    ctx = ExecContext(s.conf, s.device)
+    if kind == "aggregate":
+        node = df.group_by((pcol("k") % 8).alias("g")).agg(
+            PF.sum(pcol("v")).alias("s")).physical_plan()
+        while not isinstance(node, TpuHashAggregateExec):
+            node = node.children[0]
+        while isinstance(node.children[0], TpuHashAggregateExec):
+            node = node.children[0]
+        watched = _Watched(node, lambda b: b.columns[0].data)
+        rows = sum(int(b.num_rows()) for b in node.execute(ctx))
+        assert rows == 8
+    else:
+        node = DeviceToHostExec(df.physical_plan())
+        watched = _Watched(node, lambda b: b.columns[0].data)
+        got = [r for part in node.execute_host(ctx, rows=True)
+               for r in part]
+        assert len(got) == 256
+    assert len(watched.seen) == 4
+
+
+def test_the_scan_holds_no_batch_it_handed_on():
+    """The in-memory scan's frame keeps no slice it yielded."""
+    import gc
+    import weakref
+
+    from spark_rapids_tpu_torch.exec.base import ExecContext
+    s, _, df = _stream_session()
+    scan = df.physical_plan()
+    it = scan.execute(ExecContext(s.conf, s.device))
+    refs = []
+    for _ in range(4):
+        b = next(it)
+        refs.append(weakref.ref(b.columns[0].data))
+        del b
+        gc.collect()
+        assert refs[-1]() is None, len(refs)

@@ -1,11 +1,12 @@
-"""TPC-H q1, q6 and q18's inner lineitem aggregate, q3, q4, q5, q10,
-q12, q13, q14, q15, q17, q18, q19, q21 and q22 whole, and outer joins of
-orders and customers, through the JAX package's TpuSession and the
-port's, on the same SF0.01 tables (benchmarks/tpch/datagen.py), compared
-row for row under the rule of tests/compare.py; for the joins also the
-join execs of the two physical plans.  Both sessions allow float
-aggregation on the device, so the JAX side runs its device aggregate
-rather than its CPU executor.
+"""TPC-H q1, q6 and q18's inner lineitem aggregate, the other 20 queries
+whole (q2, q3, q4, q5, q7, q8, q9, q10, q11, q12, q13, q14, q15, q16,
+q17, q18, q19, q20, q21 and q22), and outer joins of orders and
+customers, through the JAX package's TpuSession and the port's, on the
+same SF0.01 tables (benchmarks/tpch/datagen.py), compared row for row
+under the rule of tests/compare.py; for the joins also the join execs of
+the two physical plans.  Both sessions allow float aggregation on the
+device, so the JAX side runs its device aggregate rather than its CPU
+executor.
 
 At SF0.01 q18's aggregate has ~15,000 order keys, far above the 1024
 buckets: each package's bucket check comes back dirty and the update
@@ -44,6 +45,10 @@ CONF = {"spark.rapids.sql.variableFloatAgg.enabled": "true"}
 # 300 is TPC-H's; at SF0.01 no order passes it, so a lower threshold
 # keeps the comparison non-empty
 Q18_MIN_QTY = (300, 250)
+# q20's part-name prefix: TPC-H's "forest", and "" (every part), where
+# its join of partsupp to the year's (part, supplier) pairs keeps about
+# 365 pairs at any scale (tpch.q20) and so some CANADA supplier
+Q20_PREFIX = ("forest", "")
 # the joins' second plan: no broadcast, and no partitioned join (the
 # port has no exchange), so the plain hash join and the swap route run
 HASH_JOINS = {"spark.sql.autoBroadcastJoinThreshold": "-1",
@@ -198,13 +203,13 @@ def test_port_queries_match_numpy_oracle_over_several_batches():
 
 @pytest.fixture(scope="module")
 def join_tables():
-    """customer, orders, lineitem, part, supplier, nation and region at
-    SF0.01 with every column the JAX package loads (the planner's size
+    """customer, orders, lineitem, part, supplier, nation, region and
+    partsupp at SF0.01 with every column the JAX package loads (the planner's size
     estimates read whole tables), and the port's schemas for them."""
     data = generate(SF)
     out = {}
     for name in ("customer", "orders", "lineitem", "part", "supplier",
-                 "nation", "region"):
+                 "nation", "region", "partsupp"):
         schema = Schema([StructField(f.name, _PORT_TYPE[f.dtype.name])
                          for f in JAX_SCHEMAS[name]])
         out[name] = (data[name], schema)
@@ -229,40 +234,75 @@ def _jax_q18(t, min_qty):
             .limit(100))
 
 
+def _jax_q20(t, prefix):
+    """benchmarks/tpch/queries.py q20 with its part-name prefix as an
+    argument."""
+    forest_parts = t["part"].filter(jcol("p_name").startswith(prefix)) \
+        .select(jcol("p_partkey").alias("fp_key"))
+    li94 = t["lineitem"].filter((jcol("l_shipdate") >= "1994-01-01")
+                                & (jcol("l_shipdate") < "1995-01-01"))
+    half_qty = (li94.group_by(jcol("l_partkey"), jcol("l_suppkey"))
+                .agg((JF.sum(jcol("l_quantity")) * 0.5).alias("half_qty")))
+    ps = (t["partsupp"]
+          .join(forest_parts, on=jcol("ps_partkey") == jcol("fp_key"),
+                how="left_semi")
+          .join(half_qty, on=(jcol("ps_partkey") == jcol("l_partkey"))
+                & (jcol("ps_suppkey") == jcol("l_suppkey")))
+          .filter(jcol("ps_availqty") > jcol("half_qty")))
+    canada = t["nation"].filter(jcol("n_name") == "CANADA")
+    return (t["supplier"]
+            .join(ps, on=jcol("s_suppkey") == jcol("ps_suppkey"),
+                  how="left_semi")
+            .join(canada, on=jcol("s_nationkey") == jcol("n_nationkey"))
+            .select(jcol("s_name"), jcol("s_address"))
+            .order_by("s_name"))
+
+
+# (query, its argument: q18's quantity threshold, q20's part-name
+# prefix), and the case's id
 _JOIN_CASES = [("q3", None), ("q4", None), ("q12", None), ("q14", None),
                ("q17", None)] + [("q18", q) for q in Q18_MIN_QTY] + [
     ("q5", None), ("q10", None), ("q15", None), ("q19", None),
-    ("q21", None)]
+    ("q21", None), ("q2", None), ("q7", None), ("q8", None), ("q9", None),
+    ("q11", None), ("q16", None)] + [("q20", p) for p in Q20_PREFIX]
+_JOIN_IDS = [f"{n}-{a or 'any_part'}" if n == "q20" else
+             f"{n}-{a}" if a else n for n, a in _JOIN_CASES]
+# rows of each case at SF0.01; q20's default keeps no supplier there
+_JOIN_ROWS = {"q3": 10, "q4": 5, "q12": 2, "q14": 1, "q17": 1, "q5": 5,
+              "q10": 20, "q15": 1, "q19": 1, "q21": 2, "q2": 5, "q7": 4,
+              "q8": 2, "q9": 89, "q11": 226, "q16": 295, "q20-forest": 0,
+              "q20-any_part": 2}
 
 
 @pytest.mark.parametrize("plan", ["default", "hash_joins"])
-@pytest.mark.parametrize("name,min_qty", _JOIN_CASES,
-                         ids=[f"{n}-{q}" if q else n for n, q in _JOIN_CASES])
-def test_join_queries_rows_and_plans_equal(join_tables, name, min_qty,
-                                           plan):
+@pytest.mark.parametrize("name,arg", _JOIN_CASES, ids=_JOIN_IDS)
+def test_join_queries_rows_and_plans_equal(join_tables, name, arg, plan):
     conf = dict(CONF, **(HASH_JOINS if plan == "hash_joins" else {}))
     js = JaxSession(dict(conf))
     jt = load_tables(js, sf=SF)
-    jdf = (_jax_q18(jt, min_qty) if name == "q18"
-           else QUERIES[int(name[1:])](jt))
+    jdf = (_jax_q18(jt, arg) if name == "q18" else _jax_q20(jt, arg)
+           if name == "q20" else QUERIES[int(name[1:])](jt))
     ps = TpuSession(dict(conf), device="cpu")
     pt = {n: ps.from_numpy(d, sch) for n, (d, sch) in join_tables.items()}
-    pdf = tpch.q18(pt, min_qty) if name == "q18" \
+    pdf = tpch.JOIN_QUERIES[name](pt, arg) if arg is not None \
         else tpch.JOIN_QUERIES[name](pt)
     want, got = jax_table_rows(jdf), pdf.collect()
     assert_rows_equal(want, got, ignore_order=False)
-    assert len(got) == {"q3": 10, "q4": 5, "q12": 2, "q14": 1,
-                        "q17": 1, "q5": 5, "q10": 20, "q15": 1, "q19": 1,
-                        "q21": 2}.get(name, len(got)) and got
+    case = _JOIN_IDS[_JOIN_CASES.index((name, arg))]
+    assert len(got) == _JOIN_ROWS.get(case, _JOIN_ROWS.get(name, len(got)))
+    assert got or case == "q20-forest"
     if name in ("q14", "q17", "q19"):
         # one value, over a join that is not empty
         assert got[0][0] is not None and got[0][0] > 0
     jn, pn = join_nodes(jdf.physical_plan()), join_nodes(pdf.physical_plan())
     # q17 runs its lineitem-part join twice, as in the JAX plan; q5 joins
     # six tables, the last on two keys; q21 runs its semi join of the
-    # lines three times
+    # lines three times; q2 plans its four joins of part and partsupp
+    # twice (once under the per-part minimum) and joins them back; q9's
+    # partsupp join is on two keys
     assert len(pn) == {"q4": 1, "q12": 1, "q14": 1, "q17": 3, "q5": 5,
-                       "q10": 3, "q15": 1, "q19": 1, "q21": 7}.get(name, 2) \
+                       "q10": 3, "q15": 1, "q19": 1, "q21": 7, "q2": 9,
+                       "q7": 5, "q8": 7, "q9": 5, "q20": 4}.get(name, 2) \
         and jn == pn, (jn, pn)
     if name == "q5":
         # the customer join, on two keys, hashed together
@@ -298,29 +338,34 @@ def test_to_pydict_raises_on_a_repeated_column_name():
 
 
 # at SF0.01 no line of the port's tables passes q19's filter (~2 are
-# expected), so its oracle case runs where some do
-_ORACLE_SF = {"q19": 0.03}
+# expected), and no supplier is in CANADA, so their oracle cases run
+# where some do (q20 keeps 1 supplier there, and 7 with prefix "")
+_ORACLE_SF = {"q19": 0.03, "q20": 0.03}
+# q18 at a threshold some orders pass at SF0.01, and q20 at both
+# prefixes; the other queries at their defaults
+_ORACLE_ARGS = {"q18": 250, "q20-any_part": ""}
 
 
 @pytest.mark.parametrize("name", ["q3", "q4", "q12", "q14", "q17", "q18",
-                                  "q5", "q10", "q15", "q19", "q21"])
+                                  "q5", "q10", "q15", "q19", "q21", "q2",
+                                  "q7", "q8", "q9", "q11", "q16", "q20",
+                                  "q20-any_part"])
 def test_join_queries_match_numpy_oracle(name):
     """The port's own generator and oracles (what chip_smoke.py runs at
     SF10), in both join plans, with small reader batches so the probe
     streams several batches."""
-    t = tpch.generate(_ORACLE_SF.get(name, SF))
+    query = name.split("-")[0]
+    t = tpch.generate(_ORACLE_SF.get(query, SF))
+    args = (_ORACLE_ARGS[name],) if name in _ORACLE_ARGS else ()
     for plan in ({}, HASH_JOINS):
         s = TpuSession(dict(CONF, **plan, **{
             "spark.rapids.sql.reader.batchSizeRows": "20000"}), device="cpu")
         d = {n: s.from_numpy(v, tpch.SCHEMAS[n]) for n, v in t.items()}
-        if name == "q18":
-            got, want = tpch.q18(d, 250).collect(), tpch.oracle_q18(t, 250)
-        else:
-            got, want = tpch.JOIN_QUERIES[name](d).collect(), \
-                tpch.ORACLES[name](t)
+        got = tpch.JOIN_QUERIES[query](d, *args).collect()
+        want = tpch.ORACLES[query](t, *args)
         assert got and got[0][0] is not None, name
-        if name in tpch.TOP_N:
-            assert tpch.top_rows_match(want, got, *tpch.TOP_N[name]), name
+        if query in tpch.TOP_N:
+            assert tpch.top_rows_match(want, got, *tpch.TOP_N[query]), name
         else:
             assert tpch.rows_match(want, got), name
 
@@ -491,8 +536,14 @@ def test_string_filters_match_numpy_oracle(port_tables_cut, name):
 # sha256 (first 16 hex digits) of each column of generate(0.01): those
 # from before c_phone, c_acctbal and o_comment were added, then those
 # three, then part and l_partkey, then supplier, nation, region and the
-# columns that join to them; a column added later keeps them all
+# columns that join to them, then partsupp and the part and supplier
+# columns q2, q9, q11, q16 and q20 read; a column added later keeps them
+# all
 _EARLIER_COLUMNS = {
+    "p_name": "a8a004f35d5bf419", "p_mfgr": "4382414b65be9319",
+    "s_acctbal": "b70bfd3057dd5169", "s_comment": "d64a7ca8fc6e27a3",
+    "ps_partkey": "a9893dba16d19b9d", "ps_suppkey": "efdba292bc547fce",
+    "ps_availqty": "e186bd2b050e2087", "ps_supplycost": "43d390080532992e",
     "s_suppkey": "95257ce5f6807435", "s_name": "6cf7b1329a2fa99f",
     "s_address": "fa99062e2728561d", "s_nationkey": "f35d779646b42621",
     "s_phone": "af2047b1c1a3ca4d", "c_nationkey": "cc829761f005a7c9",
