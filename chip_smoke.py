@@ -82,7 +82,22 @@ Phases, each printing a line:
      seeded 2^24-row date column of 1600-2400 and a timestamp column of
      the same years, pre-epoch rows among them, with 10% nulls, on the
      card against the same class on the CPU (values and null masks
-     exact), with its time on the card.
+     exact), with its time on the card;
+  7. date arithmetic and casts: (a) each date-arithmetic class (DateAdd
+     to NextDay) and each cast route to or from a date or a timestamp,
+     on the card against the CPU over seeded 2^24-row columns like phase
+     6's (day counts beyond int32 in a long column, month counts of
+     +-1200, seconds, and text written by the port's own date and
+     timestamp formats with about 10% of rows made malformed), values,
+     null masks and, for text, bytes and lengths exact, each with its
+     time on the card (`date_arith` lines); (b) tpch.DATE_QUERIES over
+     the resident lineitem through TpuSession(device="cuda"): the
+     monthly `ship_delay` report (trunc, datediff, date_add, next_day;
+     integers and dates, exact) and `q6_text` (q6 over l_shipdate
+     formatted as text and parsed back), each held to its numpy oracle
+     (q6_text to q6's) with the numbers of a phase 3 `query` line
+     (`date_query` lines); every kernel shape they launch joins the
+     shapes checked against the plain versions.
 A `phase_seconds` line gives each phase's wall seconds.  The
 second-last line is the card as nvidia-smi names it; the last is
 {"ok": true, "device": {...}}.  Any failure raises: nothing is caught,
@@ -98,16 +113,19 @@ import numpy as np
 import torch
 
 from spark_rapids_tpu_torch import TpuSession, tpch
-from spark_rapids_tpu_torch.columnar import bucket_rows
+from spark_rapids_tpu_torch.columnar import (Column, ColumnarBatch,
+                                             bucket_rows, bucket_strlen)
 from spark_rapids_tpu_torch.exec.aggregate import TpuHashAggregateExec
 from spark_rapids_tpu_torch.exec.broadcast import TpuBroadcastHashJoinExec
 from spark_rapids_tpu_torch.exec.join import (TpuHashJoinExec,
                                               TpuReorderColumnsExec)
 from spark_rapids_tpu_torch.ops import datetime_exprs as D
 from spark_rapids_tpu_torch.ops import kernels as K
-from spark_rapids_tpu_torch.ops.expressions import BoundReference
-from spark_rapids_tpu_torch.types import (DateType, Schema, StructField,
-                                          TimestampType)
+from spark_rapids_tpu_torch.ops.cast import Cast, cast_column
+from spark_rapids_tpu_torch.ops.expressions import BoundReference, Literal
+from spark_rapids_tpu_torch.types import (
+    BooleanType, ByteType, DateType, DoubleType, FloatType, IntegerType,
+    LongType, Schema, ShortType, StringType, StructField, TimestampType)
 
 SF = 10.0                  # TPC-H scale factor of the query phase
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (data sheet)
@@ -138,6 +156,7 @@ MAY_BE_EMPTY = {"q20"}
 SORT_PATH = ("q10", "q13", "q15", "q17", "q18", "q21", "q2", "q11", "q16",
              "q20", "q20_any_part")
 DATE_PART_ROWS = 1 << 24
+DATE_ARITH_ROWS = 1 << 24
 
 
 def card_line() -> str:
@@ -493,6 +512,192 @@ def check_date_parts(dev: torch.device, seed: int = 42) -> None:
                                      "CPU")
 
 
+def _malformed(text: list, ts: bool) -> list:
+    """Each text (bytes) made malformed one of nine ways in turn: Feb 30,
+    month 13, single-digit date parts, bytes <= 0x20 around it, a
+    letter, three dashes, a time with other separators (valid for a
+    timestamp, as in the JAX package), a trailing no-break space, a
+    full-width first digit; a timestamp's hour 24 and a 5-byte time
+    too."""
+    def single(x):
+        y, m, d = x[:10].split(b"-")
+        return b"%s-%d-%d" % (y, int(m), int(d)) + x[10:]
+    kinds = [lambda x: x[:5] + b"02-30" + x[10:],
+             lambda x: x[:5] + b"13" + x[7:],
+             single,
+             lambda x: b" \t" + x + b"\n\x0b",
+             lambda x: x[:8] + b"x" + x[9:],
+             lambda x: x[:7] + b"--" + x[8:],
+             lambda x: x[:10] + b" 12x34y56",
+             lambda x: x + b"\xc2\xa0",
+             lambda x: b"\xef\xbc\x91" + x[1:]]
+    if ts:
+        kinds += [lambda x: x[:11] + b"24" + x[13:], lambda x: x[:16]]
+    return [kinds[i % len(kinds)](x) for i, x in enumerate(text)]
+
+
+def _text_column(c: Column, rng: np.random.Generator, share: float,
+                 ts: bool) -> Column:
+    """A copy of string column `c` (on the CPU) with about `share` of its
+    rows made malformed (`_malformed`), widened to a power of two that
+    holds them."""
+    src, lens = c.data.numpy(), c.lengths.numpy().copy()
+    rows = np.flatnonzero(rng.random(len(lens)) < share)
+    blob, w = src[rows].tobytes(), c.max_len
+    bad = _malformed([blob[i * w:i * w + n]
+                      for i, n in enumerate(lens[rows].tolist())], ts)
+    width = bucket_strlen(max([c.max_len] + [len(x) for x in bad]))
+    data = np.zeros((c.capacity, width), np.uint8)
+    data[:, :c.max_len] = src
+    packed = np.frombuffer(b"".join(x.ljust(width, b"\0") for x in bad),
+                           np.uint8).reshape(len(bad), width)
+    data[rows] = packed
+    lens[rows] = [len(x) for x in bad]
+    valid = c.valid.numpy()
+    data[~valid], lens[~valid] = 0, 0
+    return Column(torch.from_numpy(data), c.valid,
+                  StringType, torch.from_numpy(lens))
+
+
+def date_arith_batch(n: int, seed: int = 42) -> ColumnarBatch:
+    """The CPU batch of phase 7 (a): dates and timestamps of 1600-2400
+    (two of each), int and long day counts (the long's beyond int32),
+    month counts of +-1200, seconds as long, double and float, short,
+    byte and boolean columns, and the dates' and first timestamps' text
+    by the port's formats, about 10% malformed; 10% nulls in every
+    column."""
+    rng = np.random.default_rng(seed)
+    lo, hi = tpch.days("1600-01-01"), tpch.days("2400-12-31")
+    day_us = 86_400_000_000
+    secs = rng.integers(lo * 86_400, (hi + 1) * 86_400, n)
+    cols = {
+        "d": (rng.integers(lo, hi + 1, n, dtype=np.int32), DateType),
+        "d2": (rng.integers(lo, hi + 1, n, dtype=np.int32), DateType),
+        "t": (rng.integers(lo * day_us, (hi + 1) * day_us, n),
+              TimestampType),
+        "t2": (rng.integers(lo * day_us, (hi + 1) * day_us, n),
+               TimestampType),
+        "k": (rng.integers(-200_000, 200_000, n, dtype=np.int32),
+              IntegerType),
+        "kl": (rng.integers(-2 ** 40, 2 ** 40, n), LongType),
+        "mo": (rng.integers(-1200, 1201, n, dtype=np.int32), IntegerType),
+        "sec": (secs, LongType),
+        "x": (secs + rng.random(n), DoubleType),
+        "f": ((secs + rng.random(n)).astype(np.float32), FloatType),
+        "i16": (rng.integers(-2 ** 15, 2 ** 15, n, dtype=np.int16),
+                ShortType),
+        "i8": (rng.integers(-128, 128, n, dtype=np.int8), ByteType),
+        "b": (rng.random(n) < 0.5, BooleanType)}
+    data = {k: np.ma.masked_array(v, mask=rng.random(n) < 0.1)
+            for k, (v, _) in cols.items()}
+    schema = Schema([StructField(k, t) for k, (_, t) in cols.items()])
+    batch = TpuSession(device="cpu").from_numpy(data, schema).plan.table
+    texts = [_text_column(cast_column(batch.column(k), StringType), rng,
+                          0.1, k == "t") for k in ("d", "t")]
+    return ColumnarBatch(
+        list(batch.columns) + texts, batch.sel,
+        Schema(list(schema) + [StructField("ds", StringType),
+                               StructField("ts", StringType)]))
+
+
+def date_arith_cases(schema: Schema) -> list:
+    """(name, expression) of each date-arithmetic class and cast route
+    phase 7 (a) checks, over `date_arith_batch`'s columns."""
+    def c(name):
+        i = schema.index_of(name)
+        return BoundReference(i, schema[i].dtype, name)
+    casts = [("d", TimestampType), ("t", DateType), ("t", LongType),
+             ("sec", TimestampType), ("k", TimestampType),
+             ("i16", TimestampType), ("i8", TimestampType),
+             ("t", DoubleType), ("t", FloatType), ("x", TimestampType),
+             ("f", TimestampType), ("b", TimestampType), ("k", DateType),
+             ("i16", DateType), ("d", IntegerType), ("d", LongType),
+             ("ds", DateType), ("ts", TimestampType), ("d", StringType),
+             ("t", StringType)]
+    cases = [(f"cast {src}:{schema[schema.index_of(src)].dtype.name} -> "
+              f"{to.name}", Cast(c(src), to)) for src, to in casts]
+    cases += [
+        ("DateAdd(d, k)", D.DateAdd(c("d"), c("k"))),
+        ("DateAdd(d, kl) (long days, wrapped to int32)",
+         D.DateAdd(c("d"), c("kl"))),
+        ("DateSub(d, k)", D.DateSub(c("d"), c("k"))),
+        ("DateDiff(d, d2)", D.DateDiff(c("d"), c("d2"))),
+        ("DateDiff(t, d)", D.DateDiff(c("t"), c("d"))),
+        ("UnixTimestamp(t)", D.UnixTimestamp(c("t"))),
+        ("UnixTimestamp(d)", D.UnixTimestamp(c("d"))),
+        ("UnixTimestamp(ts)", D.UnixTimestamp(c("ts"))),
+        ("ToUnixTimestamp(t)", D.ToUnixTimestamp(c("t"))),
+        ("FromUnixTime(sec)", D.FromUnixTime(c("sec"))),
+        ("TimeAdd(t, kl)", D.TimeAdd(c("t"), c("kl"))),
+        ("TimeSub(t, kl)", D.TimeSub(c("t"), c("kl"))),
+        ("AddMonths(d, mo)", D.AddMonths(c("d"), c("mo"))),
+        ("MonthsBetween(d, d2)", D.MonthsBetween(c("d"), c("d2"))),
+        ("MonthsBetween(t, t2, false)",
+         D.MonthsBetween(c("t"), c("t2"), Literal(False)))]
+    cases += [(f"TruncDate(d, {f})", D.TruncDate(c("d"), Literal(f)))
+              for f in ("year", "quarter", "month", "week")]
+    cases += [(f"NextDay(d, {day})", D.NextDay(c("d"), Literal(day)))
+              for day in ("MO", "sunday")]
+    return cases
+
+
+def check_date_arith(dev: torch.device) -> None:
+    """Phase 7 (a): each case of `date_arith_cases` on the card against
+    the CPU: values, null masks and, for text, bytes and lengths
+    exact."""
+    cpu = date_arith_batch(DATE_ARITH_ROWS)
+    card = ColumnarBatch(
+        [Column(c.data.to(dev), c.valid.to(dev), c.dtype,
+                None if c.lengths is None else c.lengths.to(dev))
+         for c in cpu.columns], cpu.sel.to(dev), cpu.schema)
+    for name, expr in date_arith_cases(cpu.schema):
+        want, got = expr.eval(cpu), expr.eval(card)
+        parts = [(got.data, want.data), (got.valid, want.valid)]
+        if want.dtype is StringType:
+            parts.append((got.lengths, want.lengths))
+        ok = got.dtype is want.dtype and all(
+            g.dtype == w.dtype and torch.equal(g.cpu(), w)
+            for g, w in parts)
+        print("date_arith " + json.dumps({
+            "case": name, "type": want.dtype.name, "rows": cpu.capacity,
+            "valid_rows": int(want.valid.sum()), "matches_cpu": ok,
+            "ms": time_ms(lambda: expr.eval(card))}), flush=True)
+        if not ok:
+            raise AssertionError(f"{name} on the card differs from the CPU")
+
+
+def run_date_queries(li_df, lineitem: dict) -> list:
+    """Phase 7 (b): each of tpch.DATE_QUERIES over the resident lineitem
+    against its numpy oracle (`measure`), with the numbers of a phase 3
+    `query` line; ship_delay must launch K3 (its order-by).  Returns the
+    (kernel, shape) pairs they launched."""
+    shapes = []
+    for name, query in tpch.DATE_QUERIES.items():
+        resident = torch.cuda.memory_allocated()
+        got, df, numbers, launched = measure(lambda query=query:
+                                             query(li_df))
+        shapes += launched
+        t0 = time.perf_counter()
+        want = tpch.ORACLES[name](lineitem)
+        oracle_s = time.perf_counter() - t0
+        match = tpch.rows_match(want, got)
+        plan = df.session.last_plan
+        print("date_query " + json.dumps({
+            "query": name, "rows": len(got), "matches_oracle": match,
+            "oracle_s": oracle_s, "joins": join_nodes(plan),
+            "agg_update_paths": _update_paths(plan),
+            "resident_device_bytes": resident, **numbers,
+            **({"result": [[str(v) for v in r] for r in got]}
+               if name == "ship_delay" else {})}, default=str),
+            flush=True)
+        if not match or not got:
+            raise AssertionError(f"{name} disagrees with the numpy oracle "
+                                 f"or is empty: {got[:3]} vs {want[:3]}")
+        if name == "ship_delay" and not numbers["launches"]["sort_words"]:
+            raise AssertionError(f"ship_delay launched no K3: {numbers}")
+    return shapes
+
+
 def shape_launches(before: list = ()) -> list:
     """[kernel, shape, launches] of every kernel shape launched since the
     last reset, less the launches in `before` (an earlier reading)."""
@@ -663,17 +868,22 @@ def main() -> int:
     ends.append(("queries", time.perf_counter()))
     shapes += run_string_filters(dfs["orders"], tables["orders"])
     shapes += run_outer_joins(dfs, tables)
-    del dfs
     torch.cuda.empty_cache()
     print("sparsity " + json.dumps(partsupp_sparsity(tables)), flush=True)
     ends.append(("filters, outer joins and sparsity", time.perf_counter()))
     check_date_parts(dev)
     ends.append(("date parts", time.perf_counter()))
+    check_date_arith(dev)
+    shapes += run_date_queries(dfs["lineitem"], tables["lineitem"])
+    del dfs
+    torch.cuda.empty_cache()
+    ends.append(("date arithmetic and casts", time.perf_counter()))
     shapes = list(dict.fromkeys(shapes))
     rest = [ks for ks in shapes if ks not in checked]
     print(f"kernels: {len(shapes) - len(rest)} of the {len(shapes)} shapes "
-          f"launched by the queries, filters and outer joins were checked "
-          f"in phase 2; checking the other {len(rest)}", flush=True)
+          f"launched by the queries, filters, outer joins and date queries "
+          f"were checked in phase 2; checking the other {len(rest)}",
+          flush=True)
     check_kernels(gen, dev, rest, report)
     ends.append(("launched shapes", time.perf_counter()))
     print("phase_seconds " + json.dumps(

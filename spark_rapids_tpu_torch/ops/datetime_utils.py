@@ -60,10 +60,16 @@ def days_from_civil(y: torch.Tensor, m: torch.Tensor, d: torch.Tensor
 
 
 def floordiv(a: torch.Tensor, b) -> torch.Tensor:
-    """Floor division toward -inf on int64 (torch's // already floors).
-    Nothing in the port calls it yet: it mirrors the JAX module's API for
-    the date arithmetic still to be ported, which divides months by it."""
+    """Floor division toward -inf on int64 (torch's // already floors)."""
     return a // b
+
+
+def true_div(x: torch.Tensor, d: float) -> torch.Tensor:
+    """x / d, rounded once as IEEE division (and XLA's) rounds it: on the
+    card torch turns a division by a Python number into a product with
+    its reciprocal, which can differ in the last bit, so `d` goes in as
+    a tensor on x's device."""
+    return x / torch.tensor(d, dtype=x.dtype, device=x.device)
 
 
 def micros_to_days(micros: torch.Tensor) -> torch.Tensor:
@@ -100,6 +106,11 @@ def _month_days(dev: torch.device) -> torch.Tensor:
 
 
 def last_day_of_month(y: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
-    """The last day (28-31) of month `m` (1-12) of year `y`, int32."""
-    d = _month_days(m.device)[(m - 1).to(_I64)]
+    """The last day (28-31) of month `m` (1-12) of year `y`, int32.  A
+    month outside 1-12 (an unparsable string's, a wrapped sum of months)
+    reads the table as jnp indexes it: a negative index from the end,
+    then clamped into the table."""
+    i = (m - 1).to(_I64)
+    i = torch.where(i < 0, i + 12, i).clamp(0, 11)
+    d = _month_days(m.device)[i]
     return torch.where((m == 2) & is_leap_year(y), 29, d)

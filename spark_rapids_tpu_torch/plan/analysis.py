@@ -6,58 +6,57 @@ JAX package would send a join to its CPU executor the port raises
 NotImplementedError with the same message).
 
 Produces typed, bound Expression trees.  Type coercion follows the JAX
-package's `coerce_pair`: numeric pairs promote inside the binary op, and
-a string literal compared with a date column is cast to a date.  That
-cast is folded here, at analysis, into a date literal.  Every other cast
-the JAX package inserts there (a string operand to the other side's
-type, a date to a timestamp) raises NotImplementedError, since
-ops/cast.py is not ported yet; AnalysisError is left for the pairs the
-JAX package rejects too.
+package's `coerce_pair`: numeric pairs promote inside the binary op, a
+string side is cast to the other side's type and a date side widened to
+a timestamp.  A string literal cast to a date is folded here into a date
+literal, through the parse the cast runs over a column.  A cast the JAX
+package has and the port lacks raises NotImplementedError (ops/cast.py);
+AnalysisError is left for the pairs the JAX package rejects too.
 """
 from __future__ import annotations
 
-import datetime
-import re
+import functools
 from typing import List, Optional, Tuple
 
+import torch
+
+from ..columnar import Column
 from ..ops import datetime_exprs as D
 from ..ops import expressions as E
 from ..ops import strings as S
 from ..ops.aggregates import AGG_FUNCS, AggregateExpression
 from ..exec.join import joined_schema
-from ..ops.cast import Cast
-from ..types import DateType, NullType, Schema, TimestampType, promote
+from ..ops.cast import Cast, cast_column, supported_cast
+from ..types import (DateType, NullType, Schema, StringType, TimestampType,
+                     promote)
 from .logical import ColumnExpr, LogicalJoin, col
-
-_DATE_RE = re.compile(r"(\d{4})-(\d{1,2})-(\d{1,2})")
-_EPOCH = datetime.date(1970, 1, 1)
 
 
 class AnalysisError(Exception):
     pass
 
 
+@functools.lru_cache(maxsize=256)
+def _date_literal(value: str) -> Optional[int]:
+    """The days the string -> date cast gives `value` (None: null), run
+    on the CPU over a one-row column of its UTF-8 bytes."""
+    raw = value.encode("utf-8")
+    data = torch.zeros((1, max(len(raw), 1)), dtype=torch.uint8)
+    data[0, :len(raw)] = torch.tensor(list(raw), dtype=torch.uint8)
+    c = Column(data, torch.ones(1, dtype=torch.bool), StringType,
+               torch.tensor([len(raw)], dtype=torch.int32))
+    out = cast_column(c, DateType)
+    return int(out.data[0]) if bool(out.valid[0]) else None
+
+
 def _cast_string(e: E.Expression, to) -> E.Expression:
     """The JAX package's cast of a string operand to the other side's
-    type.  The port has one such cast, folded: a string literal into a
-    date, where `yyyy-M-d` with surrounding whitespace becomes a date
-    literal and anything else null (Spark's and the JAX package's cast).
-    Any other raises."""
-    if to is not DateType or not isinstance(e, E.Literal):
-        raise NotImplementedError(
-            f"cast string -> {to.name} of {e!r} is not ported; only string "
-            "literals fold into dates")
-    if e.value is None:
-        return E.Literal(None, DateType)
-    m = _DATE_RE.fullmatch(e.value.strip())
-    days = None
-    if m:
-        try:
-            d = datetime.date(int(m[1]), int(m[2]), int(m[3]))
-            days = (d - _EPOCH).days
-        except ValueError:
-            pass
-    return E.Literal(days, DateType)
+    type; a string literal cast to a date folds into a date literal."""
+    cast = Cast(e, to)  # raises for a route the port lacks
+    if to is DateType and isinstance(e, E.Literal):
+        return E.Literal(None if e.value is None
+                         else _date_literal(e.value), DateType)
+    return cast
 
 
 def coerce_pair(l: E.Expression, r: E.Expression, op: str
@@ -72,15 +71,16 @@ def coerce_pair(l: E.Expression, r: E.Expression, op: str
         return l, E.Literal(None, lt)
     if lt.is_numeric and rt.is_numeric:
         return l, r  # BinaryExpression promotes internally
-    # the JAX package casts a string side to any other type
-    if lt.is_string:
+    # string vs date/timestamp/numeric: the string side is cast
+    if lt.is_string and supported_cast(lt, rt):
         return _cast_string(l, rt), r
-    if rt.is_string:
+    if rt.is_string and supported_cast(rt, lt):
         return l, _cast_string(r, lt)
-    if {lt, rt} == {DateType, TimestampType}:
-        raise NotImplementedError(
-            f"cast date -> timestamp (for {op} of {lt.name} and {rt.name}) "
-            "is not ported")
+    # date vs timestamp: the date widens
+    if lt is DateType and rt is TimestampType:
+        return Cast(l, TimestampType), r
+    if lt is TimestampType and rt is DateType:
+        return l, Cast(r, TimestampType)
     if op in E.COMPARISONS and lt.name == rt.name:
         raise NotImplementedError(
             f"{op} of two distinct {lt.name} type objects is not ported")
@@ -102,6 +102,15 @@ def resolve(ce, schema: Schema) -> E.Expression:
         return E.BoundReference(idx, schema[idx].dtype, name)
     if op == "lit":
         return E.Literal(ce.args[0])
+    if op == "Cast":
+        child = resolve(ce.args[0], schema)
+        to = ce.args[1]
+        if child.dtype is NullType:
+            return E.Literal(None, to)
+        if not supported_cast(child.dtype, to):
+            raise AnalysisError(f"cast {child.dtype.name}->{to.name} "
+                                "not supported")
+        return Cast(child, to)
     if op in AGG_FUNCS:
         child_ce = ce.args[0]
         child = None
@@ -125,6 +134,8 @@ def resolve(ce, schema: Schema) -> E.Expression:
                                           for a in ce.args])
     if op in D.DATE_PARTS:
         return D.DATE_PARTS[op](resolve(ce.args[0], schema))
+    if op in D.DATE_FUNCTIONS:
+        return D.DATE_FUNCTIONS[op](*[resolve(a, schema) for a in ce.args])
     if op in E.EXPRESSIONS:
         args = [resolve(a, schema) for a in ce.args]
         if len(args) == 2 and (op in E.COMPARISONS or op in E.ARITHMETIC):

@@ -7,16 +7,20 @@ comparison and boolean operators, `between`, `isin`, `is_null` and
 `when`/`otherwise`, `coalesce`, `isnan`, `least` and `greatest`,
 `substr`, `startswith`, `endswith`, `contains` and `like`, the date
 parts `year`, `month`, `dayofmonth`, `hour`, `minute` and `second`,
-`SortOrder`, and the scan, filter, project, aggregate, join, sort and
-limit nodes.  Op names and argument layouts are the JAX package's, so
-one ColumnExpr tree means the same to both.
+`cast` (to a type or its name), `to_date`, `date_add`, `date_sub`,
+`datediff`, `add_months`, `months_between`, `trunc` and `next_day`
+(UnixTimestamp, FromUnixTime, TimeAdd and TimeSub have no function, in
+the JAX package either: they are built by op name), `SortOrder`, and the
+scan, filter, project, aggregate, join, sort and limit nodes.  Op names
+and argument layouts are the JAX package's, so one ColumnExpr tree means
+the same to both.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import List, Optional, Sequence, Tuple
 
-from ..types import Schema
+from ..types import TYPES_BY_NAME, DateType, Schema
 
 
 class ColumnExpr:
@@ -93,6 +97,18 @@ class ColumnExpr:
 
     def alias(self, name: str) -> "ColumnExpr":
         return ColumnExpr(self.op, self.args, alias=name)
+
+    def cast(self, to) -> "ColumnExpr":
+        if isinstance(to, str):  # Spark accepts type names: .cast("BIGINT")
+            name = to.strip().lower()
+            name = {"bigint": "long", "integer": "int",
+                    "smallint": "short", "tinyint": "byte"}.get(name, name)
+            if name not in TYPES_BY_NAME:
+                raise ValueError(
+                    f"cast target type {to!r} is not supported "
+                    f"(supported: {sorted(TYPES_BY_NAME)})")
+            to = TYPES_BY_NAME[name]
+        return ColumnExpr("Cast", (self, to))
 
     def between(self, lo, hi) -> "ColumnExpr":
         return (self >= lo) & (self <= hi)
@@ -237,6 +253,39 @@ class functions:
     @staticmethod
     def second(e):
         return ColumnExpr("Second", (_wrap(e),))
+
+    @staticmethod
+    def to_date(e):
+        return ColumnExpr("Cast", (_wrap(e), DateType))
+
+    @staticmethod
+    def date_add(e, days):
+        return ColumnExpr("DateAdd", (_wrap(e), _wrap(days)))
+
+    @staticmethod
+    def date_sub(e, days):
+        return ColumnExpr("DateSub", (_wrap(e), _wrap(days)))
+
+    @staticmethod
+    def datediff(end, start):
+        return ColumnExpr("DateDiff", (_wrap(end), _wrap(start)))
+
+    @staticmethod
+    def add_months(e, n):
+        return ColumnExpr("AddMonths", (_wrap(e), _wrap(n)))
+
+    @staticmethod
+    def months_between(a, b, round_off=True):
+        return ColumnExpr("MonthsBetween", (_wrap(a), _wrap(b),
+                                            _wrap(round_off)))
+
+    @staticmethod
+    def trunc(e, fmt):
+        return ColumnExpr("TruncDate", (_wrap(e), _wrap(fmt)))
+
+    @staticmethod
+    def next_day(e, day_of_week):
+        return ColumnExpr("NextDay", (_wrap(e), _wrap(day_of_week)))
 
 
 class WhenBuilder(ColumnExpr):

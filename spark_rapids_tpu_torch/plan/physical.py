@@ -6,7 +6,9 @@ The JAX package tags every node for the device or the CPU
 (transitions.py).  The port has no CPU executor, so none of that applies
 yet: every node becomes its device exec, and a node, expression or
 aggregate outside the slice raises NotImplementedError here, at planning
-time.  The session prunes the scans' columns first (plan/pushdown.py).
+time, as does a cast the JAX package's tagging sends to its CPU executor
+(string -> timestamp without castStringToTimestamp).  The session prunes
+the scans' columns first (plan/pushdown.py).
 
 A join is planned by the JAX package's rules (its plan/physical.py), so
 both packages choose the same exec and the same build side:
@@ -35,8 +37,9 @@ from __future__ import annotations
 from typing import Optional
 
 from ..config import (AUTO_BROADCAST_JOIN_THRESHOLD,
-                      PARTITIONED_JOIN_ENABLED, PARTITIONED_JOIN_THRESHOLD,
-                      VARIABLE_FLOAT_AGG, TpuConf)
+                      CAST_STRING_TO_TIMESTAMP, PARTITIONED_JOIN_ENABLED,
+                      PARTITIONED_JOIN_THRESHOLD, VARIABLE_FLOAT_AGG,
+                      TpuConf)
 from ..exec.aggregate import TpuHashAggregateExec
 from ..exec.base import ExecNode
 from ..exec.basic import (TpuFilterExec, TpuGlobalLimitExec, TpuProjectExec,
@@ -45,9 +48,34 @@ from ..exec.broadcast import TpuBroadcastExchangeExec, TpuBroadcastHashJoinExec
 from ..exec.join import TpuHashJoinExec, TpuReorderColumnsExec, joined_schema
 from ..exec.sort import TpuSortExec
 from ..ops.aggregates import AggregateExpression
-from ..types import Schema, StructField
+from ..ops.cast import Cast
+from ..ops.expressions import Expression
+from ..types import Schema, StringType, StructField, TimestampType
 from . import logical as L
 from .analysis import resolve, resolve_join
+
+
+def _resolved(ce: L.ColumnExpr, schema: Schema, conf: TpuConf
+              ) -> Expression:
+    return _gated(resolve(ce, schema), conf)
+
+
+def _gated(e: Expression, conf: TpuConf) -> Expression:
+    """`e`, checked for a string -> timestamp cast, which the JAX package
+    runs on its device only when castStringToTimestamp is true (its CPU
+    executor runs it otherwise; the port has none, so it raises)."""
+    stack = [e]
+    while stack:
+        x = stack.pop()
+        if isinstance(x, Cast) and x.child.dtype is StringType \
+                and x.to is TimestampType \
+                and not conf.get(CAST_STRING_TO_TIMESTAMP):
+            raise NotImplementedError(
+                "cast string -> timestamp supports only a subset of "
+                f"formats; set {CAST_STRING_TO_TIMESTAMP.key}=true to run "
+                "it")
+        stack.extend(x.children)
+    return e
 
 
 def plan_schema(plan: L.LogicalPlan, conf: TpuConf) -> Schema:
@@ -79,7 +107,7 @@ def _aggregate(plan: L.LogicalAggregate, child: ExecNode,
     schema = child.schema
     aggs = []
     for ce in plan.aggregates:
-        a = resolve(ce, schema)
+        a = _resolved(ce, schema, conf)
         if not isinstance(a, AggregateExpression):
             raise NotImplementedError(
                 f"{ce!r} in an agg list is not an aggregate function")
@@ -93,7 +121,7 @@ def _aggregate(plan: L.LogicalAggregate, child: ExecNode,
                 "float aggregation reduces in a different order than Spark; "
                 f"set {VARIABLE_FLOAT_AGG.key}=true to run it")
         aggs.append(a)
-    grouping = [resolve(ce, schema) for ce in plan.grouping]
+    grouping = [_resolved(ce, schema, conf) for ce in plan.grouping]
     return TpuHashAggregateExec(grouping,
                                 [ce.output_name for ce in plan.grouping],
                                 aggs, child)
@@ -109,14 +137,16 @@ def convert(plan: L.LogicalPlan, conf: TpuConf) -> ExecNode:
     child = convert(plan.children[0], conf)
     schema = child.schema
     if isinstance(plan, L.LogicalProject):
-        return TpuProjectExec([resolve(ce, schema) for ce in plan.exprs],
+        return TpuProjectExec([_resolved(ce, schema, conf)
+                               for ce in plan.exprs],
                               [ce.output_name for ce in plan.exprs], child)
     if isinstance(plan, L.LogicalFilter):
-        return TpuFilterExec(resolve(plan.condition, schema), child)
+        return TpuFilterExec(_resolved(plan.condition, schema, conf), child)
     if isinstance(plan, L.LogicalAggregate):
         return _aggregate(plan, child, conf)
     if isinstance(plan, L.LogicalSort):
-        return TpuSortExec([resolve(o.child, schema) for o in plan.orders],
+        return TpuSortExec([_resolved(o.child, schema, conf)
+                            for o in plan.orders],
                            [o.ascending for o in plan.orders],
                            [o.effective_nulls_first for o in plan.orders],
                            child)
@@ -137,6 +167,8 @@ def _hints(plan: L.LogicalPlan):
 def _join(plan: L.LogicalJoin, conf: TpuConf, lc: ExecNode,
           rc: ExecNode) -> ExecNode:
     jt, lkeys, rkeys, cond = resolve_join(plan, lc.schema, rc.schema)
+    for e in lkeys + rkeys + ([cond] if cond is not None else []):
+        _gated(e, conf)
     out_schema = plan_schema(plan, conf)
     using_drop = [len(lc.schema) + rc.schema.index_of(n)
                   for n in plan.using or ()]

@@ -1,8 +1,10 @@
-"""TPC-H for the port: a vectorised generator of the columns that q1,
-q3, q4, q5, q6, q10, q12, q13, q14, q15, q17, q18, q19, q21 and q22 read
-(lineitem, orders, customer, part, supplier, nation and region), the
-queries in the port's DataFrame API, string filters over o_comment,
-outer joins of orders and customers, and numpy oracles for them.
+"""TPC-H for the port: a vectorised generator of the columns that the 22
+queries read (lineitem, orders, customer, part, supplier, partsupp,
+nation and region), the queries in the port's DataFrame API, string
+filters over o_comment, outer joins of orders and customers, two
+queries of date arithmetic and casts over lineitem (DATE_QUERIES: a
+monthly shipping-delay report, and q6 over the ship date carried as
+text), and numpy oracles for them.
 
 The generator draws from the distributions of the JAX package's
 benchmarks/tpch/datagen.py, with numpy's own generator seeded by `seed`:
@@ -902,6 +904,42 @@ JOIN_QUERIES = {"q3": q3, "q4": q4, "q12": q12, "q13": q13, "q14": q14,
 
 
 # --------------------------------------------------------------------------
+# date arithmetic and casts over lineitem
+# --------------------------------------------------------------------------
+
+def ship_delay(li):
+    """A monthly shipping-delay report: per month of the ship date, the
+    lines, their days in transit and past the commit date, the lines
+    received more than 14 days after it, and the first Monday after a
+    shipment."""
+    ship, commit = col("l_shipdate"), col("l_commitdate")
+    receipt = col("l_receiptdate")
+    return (li.group_by(F.trunc(ship, "month").alias("month"))
+            .agg(F.count(lit(1)).alias("lines"),
+                 F.sum(F.datediff(receipt, ship)).alias("transit_days"),
+                 F.sum(F.datediff(receipt, commit)).alias("days_late"),
+                 F.sum(F.when(receipt > F.date_add(commit, 14), 1)
+                       .otherwise(0)).alias("late_over_14"),
+                 F.min(F.next_day(ship, "MO")).alias("first_monday"))
+            .order_by("month"))
+
+
+def q6_text(li):
+    """q6 with the ship date carried as text (`yyyy-MM-dd`) and parsed
+    back for its bounds."""
+    shipped = F.to_date(col("l_shiptext"))
+    return (li.with_column("l_shiptext", col("l_shipdate").cast("string"))
+            .filter((shipped >= "1994-01-01") & (shipped < "1995-01-01")
+                    & col("l_discount").between(0.05, 0.07)
+                    & (col("l_quantity") < 24))
+            .agg(F.sum(col("l_extendedprice") * col("l_discount"))
+                 .alias("revenue")))
+
+
+DATE_QUERIES = {"ship_delay": ship_delay, "q6_text": q6_text}
+
+
+# --------------------------------------------------------------------------
 # outer joins: 1992's orders and the BUILDING customers on o_custkey ==
 # c_custkey, counted as count(*), count(o_orderkey) and count(c_custkey)
 # --------------------------------------------------------------------------
@@ -1013,6 +1051,35 @@ def oracle_q6(t: Dict[str, np.ndarray]) -> List[tuple]:
          & (t["l_shipdate"] < days("1995-01-01"))
          & (d >= 0.05) & (d <= 0.07) & (t["l_quantity"] < 24))
     return [(float(np.sum(t["l_extendedprice"][m] * d[m])),)]
+
+
+def oracle_ship_delay(t: Dict[str, np.ndarray]) -> List[tuple]:
+    """ship_delay's rows, by month index (bincount, no sort)."""
+    ship = t["l_shipdate"].astype(np.int64)
+    commit = t["l_commitdate"].astype(np.int64)
+    receipt = t["l_receiptdate"].astype(np.int64)
+    months = ship.astype("datetime64[D]").astype("datetime64[M]") \
+        .astype(np.int64)
+    first = int(months.min())
+    g = months - first
+    lines = np.bincount(g)
+
+    def total(v):
+        return np.bincount(g, weights=v, minlength=len(lines))
+    transit, late = total(receipt - ship), total(receipt - commit)
+    over = np.bincount(g, weights=receipt > commit + 14,
+                       minlength=len(lines))
+    # next_day is monotone in the day: the group's first Monday is that
+    # of its earliest ship date
+    earliest = np.full(len(lines), np.iinfo(np.int64).max)
+    np.minimum.at(earliest, g, ship)
+    step = (0 - (earliest + 3) % 7 + 7) % 7
+    monday = earliest + np.where(step == 0, 7, step)
+    month_day = (np.arange(len(lines)) + first).astype("datetime64[M]") \
+        .astype("datetime64[D]").astype(np.int64)
+    return [(_date(month_day[i]), int(lines[i]), int(transit[i]),
+             int(late[i]), int(over[i]), _date(monday[i]))
+            for i in np.flatnonzero(lines)]
 
 
 def oracle_q18_inner(t: Dict[str, np.ndarray],
@@ -1506,7 +1573,8 @@ ORACLES = {"q1": oracle_q1, "q6": oracle_q6, "q18_inner": oracle_q18_inner,
            "q18": oracle_q18, "q19": oracle_q19, "q21": oracle_q21,
            "q22": oracle_q22, "q2": oracle_q2, "q7": oracle_q7,
            "q8": oracle_q8, "q9": oracle_q9, "q11": oracle_q11,
-           "q16": oracle_q16, "q20": oracle_q20}
+           "q16": oracle_q16, "q20": oracle_q20,
+           "ship_delay": oracle_ship_delay, "q6_text": oracle_q6}
 # how many of the oracle's rows each top-N query keeps, and the column it
 # orders by first
 TOP_N = {"q3": (10, 3), "q10": (20, 7), "q18": (100, 4), "q2": (100, 0)}

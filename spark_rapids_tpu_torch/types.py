@@ -70,6 +70,11 @@ TimestampType = DataType("timestamp", np.dtype(np.int64))
 StringType = DataType("string", None)
 NullType = DataType("null", None)
 
+# every type by its name, as the DSL's `cast` spells it
+TYPES_BY_NAME = {t.name: t for t in (
+    BooleanType, ByteType, ShortType, IntegerType, LongType, FloatType,
+    DoubleType, DateType, TimestampType, StringType, NullType)}
+
 _NUMERIC_ORDER = [ByteType, ShortType, IntegerType, LongType, FloatType,
                   DoubleType]
 

@@ -345,14 +345,27 @@ def test_a_string_child_raises_at_planning(op):
 
 
 def test_date_arithmetic_and_weekday_do_not_resolve():
-    """DateAdd and the rest of the JAX module's date arithmetic are not
-    ported and raise at planning time; WeekDay has no op name in either
-    package."""
+    """The ops with no op name in either package do not resolve: WeekDay,
+    and ToUnixTimestamp of the date arithmetic; the port raises at
+    planning time, the JAX package at analysis.  The rest of the date
+    arithmetic resolves by its op name (tests/test_torch_datetime_arith.py
+    holds it to the JAX package), DateAdd here among them."""
+    from spark_rapids_tpu.engine import TpuSession as JaxSession
+    from spark_rapids_tpu.plan import logical as JL
+    from spark_rapids_tpu.plan.analysis import AnalysisError
+    from spark_rapids_tpu import types as JT
     df = TpuSession(device="cpu").from_numpy(
         {"d": np.array([1, 2], np.int32)},
         PT.Schema([PT.StructField("d", PT.DateType)]))
-    for op in ("DateAdd", "WeekDay"):
+    jdf = JaxSession({}).from_pydict(
+        {"d": [1, 2]}, JT.Schema([JT.StructField("d", JT.DateType)]))
+    for op in ("ToUnixTimestamp", "WeekDay"):
         with pytest.raises(NotImplementedError, match=op):
-            df.select(PL.ColumnExpr(op, (PL.col("d"), PL.lit(1))
-                                    if op == "DateAdd" else (PL.col("d"),))
-                      .alias("x")).physical_plan()
+            df.select(PL.ColumnExpr(op, (PL.col("d"),)).alias("x")) \
+                .physical_plan()
+        with pytest.raises(AnalysisError, match=op):
+            jdf.select(JL.ColumnExpr(op, (JL.col("d"),)).alias("x")) \
+                .to_arrow()
+    got = df.select(PL.ColumnExpr("DateAdd", (PL.col("d"), PL.lit(1)))
+                    .alias("x")).collect()
+    assert got == [(datetime.date(1970, 1, 3),), (datetime.date(1970, 1, 4),)]

@@ -172,10 +172,18 @@ def test_outside_the_slice_raises_at_planning_time(lineitem):
     # executor, which the port does not have
     with pytest.raises(NotImplementedError, match="variableFloatAgg"):
         li.agg(PF.sum(pcol("l_quantity"))).physical_plan()
-    # a string column cast to a date (only literals fold)
-    with pytest.raises(NotImplementedError, match="cast"):
-        li.filter(pcol("l_returnflag") < pcol("l_shipdate")) \
-            .physical_plan()
+    # a string column compared with a date: the flag is cast to a date,
+    # which no flag parses as, so every comparison is null and no row
+    # passes, in both packages
+    from spark_rapids_tpu import types as JT
+    want = JaxSession().from_pydict(
+        {k: lineitem[k][:100].tolist() for k in ("l_returnflag",
+                                                  "l_shipdate")},
+        JT.Schema([JT.StructField("l_returnflag", JT.StringType),
+                   JT.StructField("l_shipdate", JT.DateType)])) \
+        .filter(jcol("l_returnflag") < jcol("l_shipdate")).collect()
+    got = li.filter(pcol("l_returnflag") < pcol("l_shipdate")).collect()
+    assert got == want == []
     with pytest.raises(NotImplementedError, match="strings"):
         li.agg(PF.min(pcol("l_returnflag"))).physical_plan()
 
