@@ -97,12 +97,31 @@ Phases, each printing a line:
      formatted as text and parsed back), each held to its numpy oracle
      (q6_text to q6's) with the numbers of a phase 3 `query` line
      (`date_query` lines); every kernel shape they launch joins the
-     shapes checked against the plain versions.
+     shapes checked against the plain versions;
+  8. text casts: (a) each cast between text and integers, floats and
+     booleans and between numbers and booleans, on the card against the
+     CPU over seeded 2^22-row columns (`text_cast_batch`: integers of
+     each width at their extremes, doubles written by numpy's shortest
+     round trip with subnormals, +-0 and exponents to +-400, boolean
+     words in mixed case, about 10% of the text made malformed), values,
+     null masks and, for text, bytes and lengths exact, each with its
+     time on the card (`text_cast` lines); (b) tpch.TEXT_QUERIES through
+     TpuSession(device="cuda"): `q1_text` over the 60 M lines with their
+     quantity, price, discount and tax as text (made on the host from
+     the resident tables' numbers, untimed, and dropped from the card
+     once it has run), cast back (castStringToFloat set) and held to q1's oracle
+     with sum_qty an integer; `text_roundtrip` over the resident
+     lineitem (order keys, a comparison and return flags through text
+     and back; integers, exact); each with the numbers of a phase 3
+     `query` line (`text_query` lines); q1_text must launch K3 (its
+     order-by), and every shape they launch joins the shapes checked
+     against the plain versions.
 A `phase_seconds` line gives each phase's wall seconds.  The
 second-last line is the card as nvidia-smi names it; the last is
 {"ok": true, "device": {...}}.  Any failure raises: nothing is caught,
 and the script prints no result line without a CUDA device.
 """
+import itertools
 import json
 import statistics
 import subprocess
@@ -113,6 +132,7 @@ import numpy as np
 import torch
 
 from spark_rapids_tpu_torch import TpuSession, tpch
+from spark_rapids_tpu_torch.config import CAST_STRING_TO_FLOAT
 from spark_rapids_tpu_torch.columnar import (Column, ColumnarBatch,
                                              bucket_rows, bucket_strlen)
 from spark_rapids_tpu_torch.exec.aggregate import TpuHashAggregateExec
@@ -157,6 +177,20 @@ SORT_PATH = ("q10", "q13", "q15", "q17", "q18", "q21", "q2", "q11", "q16",
              "q20", "q20_any_part")
 DATE_PART_ROWS = 1 << 24
 DATE_ARITH_ROWS = 1 << 24
+TEXT_CAST_ROWS = 1 << 22
+# text the JAX package's parses read apart from Spark: digit sums that
+# wrap in int64, a mantissa of more than 19 digits, 10^23, scales past
+# 10^308
+TEXT_EDGES = [b"9999999999999999999", b"9223372036854775808",
+              b"-9223372036854775809", b"3.14159265358979323846", b"1e23",
+              b"4.9e-324", b"1e-400", b"1e400", b"-0",
+              b"123456789012345678901234"]
+# every case spelling of the boolean words
+BOOL_FORMS = [bytes(c) for w in (b"true", b"t", b"yes", b"y", b"1",
+                                 b"false", b"f", b"no", b"n", b"0")
+              for c in itertools.product(*[sorted({ch, ch & ~0x20})
+                                           if 0x61 <= ch <= 0x7A else [ch]
+                                           for ch in w])]
 
 
 def card_line() -> str:
@@ -641,29 +675,47 @@ def date_arith_cases(schema: Schema) -> list:
     return cases
 
 
-def check_date_arith(dev: torch.device) -> None:
-    """Phase 7 (a): each case of `date_arith_cases` on the card against
-    the CPU: values, null masks and, for text, bytes and lengths
-    exact."""
-    cpu = date_arith_batch(DATE_ARITH_ROWS)
+def _same_bits(got: torch.Tensor, want: torch.Tensor) -> bool:
+    """Equal dtype and bits (a float by its bits, NaN too)."""
+    if got.dtype != want.dtype:
+        return False
+    if got.is_floating_point():
+        ints = {torch.float64: torch.int64, torch.float32: torch.int32}
+        got, want = got.view(ints[got.dtype]), want.view(ints[want.dtype])
+    return torch.equal(got.cpu(), want)
+
+
+def check_on_card(kind: str, cpu: ColumnarBatch, cases: list,
+                  dev: torch.device) -> None:
+    """Each (name, expression) of `cases` over batch `cpu` and its copy
+    on the card: values (floats by their bits), null masks and, for
+    text, bytes and lengths exact; one `kind` line each, with its time
+    on the card."""
     card = ColumnarBatch(
         [Column(c.data.to(dev), c.valid.to(dev), c.dtype,
                 None if c.lengths is None else c.lengths.to(dev))
          for c in cpu.columns], cpu.sel.to(dev), cpu.schema)
-    for name, expr in date_arith_cases(cpu.schema):
+    for name, expr in cases:
         want, got = expr.eval(cpu), expr.eval(card)
         parts = [(got.data, want.data), (got.valid, want.valid)]
         if want.dtype is StringType:
             parts.append((got.lengths, want.lengths))
-        ok = got.dtype is want.dtype and all(
-            g.dtype == w.dtype and torch.equal(g.cpu(), w)
-            for g, w in parts)
-        print("date_arith " + json.dumps({
+        ok = got.dtype is want.dtype and all(_same_bits(g, w)
+                                             for g, w in parts)
+        print(f"{kind} " + json.dumps({
             "case": name, "type": want.dtype.name, "rows": cpu.capacity,
             "valid_rows": int(want.valid.sum()), "matches_cpu": ok,
             "ms": time_ms(lambda: expr.eval(card))}), flush=True)
         if not ok:
             raise AssertionError(f"{name} on the card differs from the CPU")
+
+
+def check_date_arith(dev: torch.device) -> None:
+    """Phase 7 (a): each case of `date_arith_cases` on the card against
+    the CPU: values, null masks and, for text, bytes and lengths
+    exact."""
+    cpu = date_arith_batch(DATE_ARITH_ROWS)
+    check_on_card("date_arith", cpu, date_arith_cases(cpu.schema), dev)
 
 
 def run_date_queries(li_df, lineitem: dict) -> list:
@@ -695,6 +747,160 @@ def run_date_queries(li_df, lineitem: dict) -> list:
                                  f"or is empty: {got[:3]} vs {want[:3]}")
         if name == "ship_delay" and not numbers["launches"]["sort_words"]:
             raise AssertionError(f"ship_delay launched no K3: {numbers}")
+    return shapes
+
+
+def _malformed_text(text: np.ndarray, rng: np.random.Generator,
+                    share: float) -> np.ndarray:
+    """A copy of byte-string array `text` with about `share` of its rows
+    made malformed, each of these forms in turn: a sign alone, two dots,
+    `e5e` after it, `e5`, `0x10`, `1_000`, full-width digits, a trailing
+    no-break space, bytes <= 0x20 around it (which the trim takes off),
+    one of TEXT_EDGES."""
+    out = text.astype(f"S{text.itemsize + 8}")
+    rows = np.flatnonzero(rng.random(len(text)) < share)
+    forms = [lambda t: np.full(len(t), b"+"),
+             lambda t: np.full(len(t), b"-"),
+             lambda t: np.char.add(t, b".5.5"),
+             lambda t: np.char.add(t, b"e5e"),
+             lambda t: np.full(len(t), b"e5"),
+             lambda t: np.full(len(t), b"0x10"),
+             lambda t: np.full(len(t), b"1_000"),
+             lambda t: np.full(len(t), "\uff11\uff12".encode()),
+             lambda t: np.char.add(t, b"\xc2\xa0"),
+             lambda t: np.char.add(np.char.add(b" \t", t), b"\n\x0b"),
+             lambda t: rng.choice(np.array(TEXT_EDGES), len(t))]
+    for k, form in enumerate(forms):
+        at = rows[k::len(forms)]
+        out[at] = form(out[at])
+    return out
+
+
+def text_cast_batch(n: int, seed: int = 42) -> ColumnarBatch:
+    """The CPU batch of phase 8 (a): byte, short, int and long columns
+    over their whole ranges, extremes first; doubles of magnitudes
+    10^-320 to 10^300 (subnormals among them) with NaN, +-inf and +-0,
+    and their floats; booleans; and text: integers of every width, other
+    doubles written by numpy's shortest round trip (17-digit mantissas)
+    with a tenth given exponents of +-400, and every case spelling of
+    the boolean words, each about 10% malformed (`_malformed_text`); 10%
+    nulls in every column."""
+    rng = np.random.default_rng(seed)
+    cols = {}
+    for name, dt, t in (("i8", np.int8, ByteType), ("i16", np.int16,
+                                                     ShortType),
+                        ("i32", np.int32, IntegerType),
+                        ("i64", np.int64, LongType)):
+        info = np.iinfo(dt)
+        v = rng.integers(info.min, info.max, n, dtype=dt, endpoint=True)
+        v[:4] = [info.min, info.max, 0, -1]
+        cols[name] = (v, t)
+
+    def doubles():
+        x = rng.normal(0, 1, n) * 10.0 ** rng.integers(-320, 300, n)
+        pick = rng.random(n)
+        return np.where(pick < 0.01, np.nan, np.where(
+            pick < 0.02, np.inf * np.sign(pick - 0.015), np.where(
+                pick < 0.03, np.copysign(0.0, pick - 0.025), x)))
+    x = doubles()
+    with np.errstate(over="ignore"):
+        cols["x"] = (x, DoubleType)
+        cols["f"] = (x.astype(np.float32), FloatType)
+    cols["b"] = (rng.random(n) < 0.5, BooleanType)
+    width = rng.integers(0, 4, n)
+    ints = np.choose(width, [cols[c][0].astype(np.int64)
+                             for c in ("i8", "i16", "i32", "i64")])
+    text = doubles().astype("S24")
+    far = np.flatnonzero(rng.random(n) < 0.1)
+    text[far] = np.char.add(np.char.add(rng.random(len(far)).astype("S12"),
+                                        b"e"),
+                            rng.integers(-400, 401, len(far)).astype("S4"))
+    texts = {"it": ints.astype("S20"), "ft": text,
+             "bt": rng.choice(np.array(BOOL_FORMS), n)}
+    for k, v in texts.items():
+        cols[k] = (_malformed_text(v, rng, 0.1), StringType)
+    data = {k: np.ma.masked_array(v, mask=rng.random(n) < 0.1)
+            for k, (v, _) in cols.items()}
+    schema = Schema([StructField(k, t) for k, (_, t) in cols.items()])
+    return TpuSession(device="cpu").from_numpy(data, schema).plan.table
+
+
+def text_cast_cases(schema: Schema) -> list:
+    """(name, Cast) of each route phase 8 (a) checks, over
+    `text_cast_batch`'s columns."""
+    numbers = ("i8", "i16", "i32", "i64", "f", "x")
+    routes = ([("it", t) for t in (ByteType, ShortType, IntegerType,
+                                   LongType, DoubleType)]
+              + [("ft", t) for t in (FloatType, DoubleType, LongType)]
+              + [("bt", BooleanType)]
+              + [(c, StringType) for c in ("i8", "i16", "i32", "i64", "b")]
+              + [(c, BooleanType) for c in numbers]
+              + [("b", schema[schema.index_of(c)].dtype) for c in numbers])
+    out = []
+    for src, to in routes:
+        i = schema.index_of(src)
+        out.append((f"cast {src}:{schema[i].dtype.name} -> {to.name}",
+                    Cast(BoundReference(i, schema[i].dtype, src), to)))
+    return out
+
+
+def check_text_casts(dev: torch.device) -> None:
+    """Phase 8 (a): each route of `text_cast_cases` on the card against
+    the CPU."""
+    cpu = text_cast_batch(TEXT_CAST_ROWS)
+    check_on_card("text_cast", cpu, text_cast_cases(cpu.schema), dev)
+
+
+def _text_query(name: str, df_in, lineitem: dict) -> list:
+    """One of tpch.TEXT_QUERIES over DataFrame `df_in` against its numpy
+    oracle (`measure`), printed as a `text_query` line; q1_text must
+    launch K3 (its order-by).  Returns the (kernel, shape) pairs it
+    launched."""
+    resident = torch.cuda.memory_allocated()
+    got, df, numbers, launched = measure(
+        lambda: tpch.TEXT_QUERIES[name](df_in))
+    t0 = time.perf_counter()
+    want = tpch.ORACLES[name](lineitem)
+    oracle_s = time.perf_counter() - t0
+    match = tpch.rows_match(want, got)
+    plan = df.session.last_plan
+    print("text_query " + json.dumps({
+        "query": name, "rows": len(got), "matches_oracle": match,
+        "oracle_s": oracle_s, "joins": join_nodes(plan),
+        "agg_update_paths": _update_paths(plan),
+        "resident_device_bytes": resident, **numbers, "result": got}),
+        flush=True)
+    if not match or not got:
+        raise AssertionError(f"{name} disagrees with the numpy oracle or "
+                             f"is empty: {got[:3]} vs {want[:3]}")
+    if name == "q1_text" and not numbers["launches"]["sort_words"]:
+        raise AssertionError(f"q1_text launched no K3: {numbers}")
+    return launched
+
+
+def run_text_queries(li_df, lineitem: dict, device: str = "cuda") -> list:
+    """Phase 8 (b): each of tpch.TEXT_QUERIES on the card (`_text_query`):
+    text_roundtrip over the resident `li_df`; q1_text over
+    LINEITEM_TEXT's columns, made from `lineitem` on the host and copied
+    to the card in a session of its own (castStringToFloat set) just
+    before it runs, and dropped right after.  Returns the (kernel,
+    shape) pairs they launched."""
+    shapes = []
+    for name in tpch.TEXT_QUERIES:
+        if tpch.TEXT_INPUTS[name] == "lineitem":
+            shapes += _text_query(name, li_df, lineitem)
+            continue
+        t0 = time.perf_counter()
+        text_df = TpuSession(
+            dict(CONF, **{CAST_STRING_TO_FLOAT.key: "true"}),
+            device=device).from_numpy(tpch.text_lineitem(lineitem),
+                                      tpch.LINEITEM_TEXT)
+        torch.cuda.synchronize()
+        print(f"text_queries: lineitem_text made and copied to the card "
+              f"in {time.perf_counter() - t0:.3f} s", flush=True)
+        shapes += _text_query(name, text_df, lineitem)
+        del text_df  # its columns leave the card before the next query
+        torch.cuda.empty_cache()
     return shapes
 
 
@@ -875,15 +1081,19 @@ def main() -> int:
     ends.append(("date parts", time.perf_counter()))
     check_date_arith(dev)
     shapes += run_date_queries(dfs["lineitem"], tables["lineitem"])
-    del dfs
     torch.cuda.empty_cache()
     ends.append(("date arithmetic and casts", time.perf_counter()))
+    check_text_casts(dev)
+    shapes += run_text_queries(dfs["lineitem"], tables["lineitem"])
+    del dfs
+    torch.cuda.empty_cache()
+    ends.append(("text casts", time.perf_counter()))
     shapes = list(dict.fromkeys(shapes))
     rest = [ks for ks in shapes if ks not in checked]
     print(f"kernels: {len(shapes) - len(rest)} of the {len(shapes)} shapes "
-          f"launched by the queries, filters, outer joins and date queries "
-          f"were checked in phase 2; checking the other {len(rest)}",
-          flush=True)
+          f"launched by the queries, filters, outer joins, date and text "
+          f"queries were checked in phase 2; checking the other "
+          f"{len(rest)}", flush=True)
     check_kernels(gen, dev, rest, report)
     ends.append(("launched shapes", time.perf_counter()))
     print("phase_seconds " + json.dumps(

@@ -102,6 +102,10 @@ AUTO_BROADCAST_JOIN_THRESHOLD = ConfEntry(
     "Maximum estimated size in bytes of a join build side that will be "
     "broadcast to every consumer instead of shuffled (Spark's conf key; "
     "-1 disables broadcast joins).", _to_bytes_or_disabled)
+CAST_STRING_TO_FLOAT = ConfEntry(
+    "spark.rapids.sql.castStringToFloat.enabled", False,
+    "Enable string->float casts on device; off by default because corner-case "
+    "formats differ from the CPU.", _to_bool)
 CAST_STRING_TO_TIMESTAMP = ConfEntry(
     "spark.rapids.sql.castStringToTimestamp.enabled", False,
     "Enable string->timestamp casts on device.", _to_bool)

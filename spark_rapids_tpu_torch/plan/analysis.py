@@ -7,56 +7,29 @@ NotImplementedError with the same message).
 
 Produces typed, bound Expression trees.  Type coercion follows the JAX
 package's `coerce_pair`: numeric pairs promote inside the binary op, a
-string side is cast to the other side's type and a date side widened to
-a timestamp.  A string literal cast to a date is folded here into a date
-literal, through the parse the cast runs over a column.  A cast the JAX
-package has and the port lacks raises NotImplementedError (ops/cast.py);
-AnalysisError is left for the pairs the JAX package rejects too.
+string side is cast to the other side's type (a number, a boolean, a
+date or a timestamp) and a date side widened to a timestamp.  A string
+literal's cast is folded when it is made (ops/cast.py), through the
+parse the cast runs over a column; it stays a Cast node, so the
+planner's conf gates see it (plan/physical.py).  AnalysisError is left
+for the pairs the JAX package rejects too.
 """
 from __future__ import annotations
 
-import functools
 from typing import List, Optional, Tuple
 
-import torch
-
-from ..columnar import Column
 from ..ops import datetime_exprs as D
 from ..ops import expressions as E
 from ..ops import strings as S
 from ..ops.aggregates import AGG_FUNCS, AggregateExpression
 from ..exec.join import joined_schema
-from ..ops.cast import Cast, cast_column, supported_cast
-from ..types import (DateType, NullType, Schema, StringType, TimestampType,
-                     promote)
+from ..ops.cast import Cast, supported_cast
+from ..types import DateType, NullType, Schema, TimestampType, promote
 from .logical import ColumnExpr, LogicalJoin, col
 
 
 class AnalysisError(Exception):
     pass
-
-
-@functools.lru_cache(maxsize=256)
-def _date_literal(value: str) -> Optional[int]:
-    """The days the string -> date cast gives `value` (None: null), run
-    on the CPU over a one-row column of its UTF-8 bytes."""
-    raw = value.encode("utf-8")
-    data = torch.zeros((1, max(len(raw), 1)), dtype=torch.uint8)
-    data[0, :len(raw)] = torch.tensor(list(raw), dtype=torch.uint8)
-    c = Column(data, torch.ones(1, dtype=torch.bool), StringType,
-               torch.tensor([len(raw)], dtype=torch.int32))
-    out = cast_column(c, DateType)
-    return int(out.data[0]) if bool(out.valid[0]) else None
-
-
-def _cast_string(e: E.Expression, to) -> E.Expression:
-    """The JAX package's cast of a string operand to the other side's
-    type; a string literal cast to a date folds into a date literal."""
-    cast = Cast(e, to)  # raises for a route the port lacks
-    if to is DateType and isinstance(e, E.Literal):
-        return E.Literal(None if e.value is None
-                         else _date_literal(e.value), DateType)
-    return cast
 
 
 def coerce_pair(l: E.Expression, r: E.Expression, op: str
@@ -71,11 +44,11 @@ def coerce_pair(l: E.Expression, r: E.Expression, op: str
         return l, E.Literal(None, lt)
     if lt.is_numeric and rt.is_numeric:
         return l, r  # BinaryExpression promotes internally
-    # string vs date/timestamp/numeric: the string side is cast
+    # string vs date/timestamp/numeric/boolean: the string side is cast
     if lt.is_string and supported_cast(lt, rt):
-        return _cast_string(l, rt), r
+        return Cast(l, rt), r
     if rt.is_string and supported_cast(rt, lt):
-        return l, _cast_string(r, lt)
+        return l, Cast(r, lt)
     # date vs timestamp: the date widens
     if lt is DateType and rt is TimestampType:
         return Cast(l, TimestampType), r

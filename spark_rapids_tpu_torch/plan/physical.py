@@ -7,7 +7,8 @@ The JAX package tags every node for the device or the CPU
 yet: every node becomes its device exec, and a node, expression or
 aggregate outside the slice raises NotImplementedError here, at planning
 time, as does a cast the JAX package's tagging sends to its CPU executor
-(string -> timestamp without castStringToTimestamp).  The session prunes
+(string -> timestamp without castStringToTimestamp, string -> float or
+double without castStringToFloat).  The session prunes
 the scans' columns first (plan/pushdown.py).
 
 A join is planned by the JAX package's rules (its plan/physical.py), so
@@ -36,7 +37,7 @@ from __future__ import annotations
 
 from typing import Optional
 
-from ..config import (AUTO_BROADCAST_JOIN_THRESHOLD,
+from ..config import (AUTO_BROADCAST_JOIN_THRESHOLD, CAST_STRING_TO_FLOAT,
                       CAST_STRING_TO_TIMESTAMP, PARTITIONED_JOIN_ENABLED,
                       PARTITIONED_JOIN_THRESHOLD, VARIABLE_FLOAT_AGG,
                       TpuConf)
@@ -61,19 +62,26 @@ def _resolved(ce: L.ColumnExpr, schema: Schema, conf: TpuConf
 
 
 def _gated(e: Expression, conf: TpuConf) -> Expression:
-    """`e`, checked for a string -> timestamp cast, which the JAX package
-    runs on its device only when castStringToTimestamp is true (its CPU
-    executor runs it otherwise; the port has none, so it raises)."""
+    """`e`, checked for a string -> timestamp cast and a string -> float
+    or double cast, folded string literals' among them, which the JAX
+    package runs on its device only when castStringToTimestamp and
+    castStringToFloat are true (its CPU executor runs them otherwise;
+    the port has none, so it raises)."""
     stack = [e]
     while stack:
         x = stack.pop()
-        if isinstance(x, Cast) and x.child.dtype is StringType \
-                and x.to is TimestampType \
-                and not conf.get(CAST_STRING_TO_TIMESTAMP):
-            raise NotImplementedError(
-                "cast string -> timestamp supports only a subset of "
-                f"formats; set {CAST_STRING_TO_TIMESTAMP.key}=true to run "
-                "it")
+        if isinstance(x, Cast) and x.child.dtype is StringType:
+            if x.to is TimestampType \
+                    and not conf.get(CAST_STRING_TO_TIMESTAMP):
+                raise NotImplementedError(
+                    "cast string -> timestamp supports only a subset of "
+                    f"formats; set {CAST_STRING_TO_TIMESTAMP.key}=true to "
+                    "run it")
+            if x.to.is_floating and not conf.get(CAST_STRING_TO_FLOAT):
+                raise NotImplementedError(
+                    f"cast string -> {x.to.name} can differ from Spark in "
+                    f"corner cases; set {CAST_STRING_TO_FLOAT.key}=true to "
+                    "run it")
         stack.extend(x.children)
     return e
 

@@ -4,7 +4,9 @@ nation and region), the queries in the port's DataFrame API, string
 filters over o_comment, outer joins of orders and customers, two
 queries of date arithmetic and casts over lineitem (DATE_QUERIES: a
 monthly shipping-delay report, and q6 over the ship date carried as
-text), and numpy oracles for them.
+text), two of text casts (TEXT_QUERIES: q1 over a lineitem whose numbers
+arrive as text, and a round trip of keys and flags through text), and
+numpy oracles for them.
 
 The generator draws from the distributions of the JAX package's
 benchmarks/tpch/datagen.py, with numpy's own generator seeded by `seed`:
@@ -192,6 +194,31 @@ def _counted(prefix: str, n: int) -> np.ndarray:
     pre = np.frombuffer(prefix.encode(), dtype=np.uint8)
     return _as_bytes(np.concatenate(
         [np.broadcast_to(pre, (n, len(pre))), dig], axis=1))
+
+
+def _decimal_text(v: np.ndarray, scale: int = 0) -> np.ndarray:
+    """Non-negative integers `v` as decimal text with their last `scale`
+    digits after a dot ("17", "24386.67", "0.04" for 17, 2438667 and 4
+    at scales 0, 2 and 2), at least one digit before it: a byte matrix
+    of the zero-padded digits with the dot put in, each row shifted left
+    past its leading zeros (one masked copy per count of them), which
+    trail as zero bytes and drop.  Where the values are few against the
+    rows, the text of each value is made once and looked up."""
+    top = int(v.max()) if len(v) else 0
+    if top < len(v) // 4:
+        return _decimal_text(np.arange(top + 1), scale)[v]
+    width = max(len(str(top)), scale + 1)
+    mat = _digits(v, width)
+    if scale:
+        mat = np.insert(mat, width - scale, ord("."), axis=1)
+    n_dig = np.maximum(1 + sum((v >= 10 ** k).astype(np.int64)
+                               for k in range(1, width)), scale + 1)
+    lead = width - n_dig
+    out = np.zeros_like(mat)
+    for k in np.unique(lead):
+        rows = lead == k
+        out[rows, :mat.shape[1] - k] = mat[rows, k:]
+    return _as_bytes(out)
 
 
 def _phones(rng: np.random.Generator, n: int) -> np.ndarray:
@@ -940,6 +967,66 @@ DATE_QUERIES = {"ship_delay": ship_delay, "q6_text": q6_text}
 
 
 # --------------------------------------------------------------------------
+# text casts: lineitem's numbers read as text, and keys and flags written
+# as text and read back
+# --------------------------------------------------------------------------
+
+# the columns q1 reads, its four numbers as text
+LINEITEM_TEXT = Schema([StructField("l_returnflag", StringType),
+                        StructField("l_linestatus", StringType),
+                        StructField("l_shipdate", DateType),
+                        StructField("l_quantity", StringType),
+                        StructField("l_extendedprice", StringType),
+                        StructField("l_discount", StringType),
+                        StructField("l_tax", StringType)])
+
+
+def text_lineitem(li: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+    """The columns of LINEITEM_TEXT from lineitem `li`, the quantity,
+    price, discount and tax written as a CSV file holds them ("17",
+    "24386.67", "0.04", "0.02"; 8 bytes at most): each from its cents as
+    an integer, so the text parses back to the double the generator's
+    np.round(x, 2) gave (one division of the cents by 100, rounded)."""
+    out = {k: li[k] for k in ("l_returnflag", "l_linestatus", "l_shipdate")}
+    out["l_quantity"] = _decimal_text(li["l_quantity"].astype(np.int64))
+    for k in ("l_extendedprice", "l_discount", "l_tax"):
+        out[k] = _decimal_text(np.rint(li[k] * 100).astype(np.int64), 2)
+    return out
+
+
+def q1_text(li):
+    """q1 over LINEITEM_TEXT: the quantity cast back to int and the
+    price, discount and tax to double (which needs castStringToFloat),
+    then q1 unchanged; sum_qty is then a long."""
+    return q1(li.select(
+        col("l_returnflag"), col("l_linestatus"), col("l_shipdate"),
+        col("l_quantity").cast("int").alias("l_quantity"),
+        *[col(k).cast("double").alias(k)
+          for k in ("l_extendedprice", "l_discount", "l_tax")]))
+
+
+def text_roundtrip(li):
+    """A job that reads back the keys and flags an earlier job wrote as
+    text: the lines, those whose order key comes back from its text
+    unchanged (all of them), those with a quantity over 24 (through the
+    text of the comparison, "true" or "false"), and the return flags
+    that read as a boolean (only "N", as false)."""
+    key = col("l_orderkey")
+    return li.agg(
+        F.count(lit(1)).alias("lines"),
+        F.sum((key.cast("string").cast("long") == key).cast("int"))
+        .alias("keys_back"),
+        F.sum((col("l_quantity") > 24).cast("string").cast("boolean")
+              .cast("long")).alias("over_24"),
+        F.count(col("l_returnflag").cast("boolean")).alias("flags_read"))
+
+
+TEXT_QUERIES = {"q1_text": q1_text, "text_roundtrip": text_roundtrip}
+# the table each reads: LINEITEM_TEXT's columns, or lineitem itself
+TEXT_INPUTS = {"q1_text": "lineitem_text", "text_roundtrip": "lineitem"}
+
+
+# --------------------------------------------------------------------------
 # outer joins: 1992's orders and the BUILDING customers on o_custkey ==
 # c_custkey, counted as count(*), count(o_orderkey) and count(c_custkey)
 # --------------------------------------------------------------------------
@@ -1043,6 +1130,18 @@ def oracle_q1(t: Dict[str, np.ndarray]) -> List[tuple]:
     return [(chr(k // 256), chr(k % 256), q, p, d, c, q / n, p / n,
              x / n, int(n))
             for k, q, p, d, c, x, n in zip(keys, *sums, cnt)]
+
+
+def oracle_q1_text(t: Dict[str, np.ndarray]) -> List[tuple]:
+    """q1's rows with sum_qty an integer: the text quantity is cast to
+    int, and its sum is a long."""
+    return [(r[0], r[1], int(r[2])) + r[3:] for r in oracle_q1(t)]
+
+
+def oracle_text_roundtrip(t: Dict[str, np.ndarray]) -> List[tuple]:
+    n = len(t["l_orderkey"])
+    return [(n, n, int(np.count_nonzero(t["l_quantity"] > 24)),
+             int(np.count_nonzero(t["l_returnflag"] == b"N")))]
 
 
 def oracle_q6(t: Dict[str, np.ndarray]) -> List[tuple]:
@@ -1574,7 +1673,9 @@ ORACLES = {"q1": oracle_q1, "q6": oracle_q6, "q18_inner": oracle_q18_inner,
            "q22": oracle_q22, "q2": oracle_q2, "q7": oracle_q7,
            "q8": oracle_q8, "q9": oracle_q9, "q11": oracle_q11,
            "q16": oracle_q16, "q20": oracle_q20,
-           "ship_delay": oracle_ship_delay, "q6_text": oracle_q6}
+           "ship_delay": oracle_ship_delay, "q6_text": oracle_q6,
+           "q1_text": oracle_q1_text,
+           "text_roundtrip": oracle_text_roundtrip}
 # how many of the oracle's rows each top-N query keeps, and the column it
 # orders by first
 TOP_N = {"q3": (10, 3), "q10": (20, 7), "q18": (100, 4), "q2": (100, 0)}

@@ -42,7 +42,7 @@ from spark_rapids_tpu_torch.columnar import Column
 from spark_rapids_tpu_torch.ops import cast as PC
 from spark_rapids_tpu_torch.ops.expressions import Expression
 from spark_rapids_tpu_torch.plan import logical as PL
-from spark_rapids_tpu_torch.plan.analysis import AnalysisError, _date_literal
+from spark_rapids_tpu_torch.plan.analysis import AnalysisError
 
 N = 4096
 _EPOCH = datetime.date(1970, 1, 1)
@@ -65,15 +65,9 @@ ROUTES = [("d", "timestamp"), ("t", "date"), ("t", "long"),
           ("i", "date"), ("s16", "date"), ("d", "int"), ("d", "long"),
           ("ds", "date"), ("ts", "timestamp"), ("d", "string"),
           ("t", "string")]
-# the JAX package's routes that stay unported
-UNPORTED = ({("string", t) for t in ("byte", "short", "int", "long",
-                                      "float", "double", "boolean")}
-            | {(t, "string") for t in ("byte", "short", "int", "long",
-                                       "boolean")}
-            | {(t, "boolean") for t in ("byte", "short", "int", "long",
-                                        "float", "double")}
-            | {("boolean", t) for t in ("byte", "short", "int", "long",
-                                        "float", "double")})
+# the JAX package's routes that stay unported: none
+UNPORTED = set()
+FLOAT_KEY = "spark.rapids.sql.castStringToFloat.enabled"
 
 # step 0: strings compared with a date column holding 1994-07-23
 FOLD_STRINGS = {
@@ -254,42 +248,53 @@ def test_cast_route_equals_the_jax_route(src, dst, data):
 
 def test_every_jax_route_is_ported_or_raises_not_implemented():
     """Over every pair of types: `supported_cast` answers as the JAX
-    package's, and a Cast the JAX package has is either one of the
-    port's routes or raises NotImplementedError naming it; the unported
-    ones are exactly UNPORTED."""
+    package's, the port's routes are the JAX package's `_DISPATCH` (the
+    JAX routes the port lacks are UNPORTED, empty), every route besides
+    numeric -> numeric has a parity case in ROUTES here or in
+    test_torch_cast_text.ROUTES, and a Cast of a pair the JAX package
+    lacks raises NotImplementedError naming it."""
+    import test_torch_cast_text as XT
+    assert set(JC._DISPATCH) - set(PC._ROUTES) == UNPORTED
+    assert set(PC._ROUTES) <= set(JC._DISPATCH)
+    cased = ({(TYPES[c], d) for c, d in ROUTES}
+             | {(XT.TYPES[c], d) for c, d in XT.ROUTES})
     names = sorted(JAX_TYPES)
-    unported = set()
     for s in names:
         for d in names:
             ps, pd = PT.TYPES_BY_NAME[s], PT.TYPES_BY_NAME[d]
             has = JC.supported_cast(JAX_TYPES[s], JAX_TYPES[d])
             assert PC.supported_cast(ps, pd) == has, (s, d)
-            if not has or s == d:
+            child = Given(Column(torch.zeros(1), torch.ones(1), ps))
+            if not has:
+                with pytest.raises(NotImplementedError,
+                                   match=f"cast {s} -> {d}"):
+                    PC.Cast(child, pd)
                 continue
+            PC.Cast(child, pd)
             numeric = ps.is_numeric and pd.is_numeric
-            try:
-                PC.Cast(Given(Column(torch.zeros(1), torch.ones(1), ps)), pd)
-            except NotImplementedError as e:
-                assert f"cast {s} -> {d}" in str(e)
-                unported.add((s, d))
-                continue
-            assert numeric or any(TYPES[c] == s and t == d
-                                  for c, t in ROUTES), (s, d)
-    assert unported == UNPORTED
+            assert s == d or numeric or (s, d) in cased, (s, d)
 
 
-@pytest.mark.parametrize("src,dst", [("ds", "int"), ("ds", "double"),
-                                     ("ds", "boolean"), ("b", "string"),
-                                     ("l", "string"), ("i", "boolean"),
-                                     ("b", "double")])
-def test_an_unported_route_raises_at_planning(src, dst, data):
-    """A route the JAX package has and the port lacks (string <->
-    numeric and boolean) raises NotImplementedError when the plan is
-    made."""
+# the pairs the port once refused at planning, each now run through the
+# planner in both packages (string -> double with castStringToFloat)
+PLANNED = [("ds", "int"), ("ds", "double"), ("ds", "boolean"),
+           ("b", "string"), ("l", "string"), ("i", "boolean"),
+           ("b", "double")]
+
+
+@pytest.mark.parametrize("src,dst", PLANNED)
+def test_a_route_through_the_planner_gives_the_jax_rows(src, dst, data):
+    conf = {FLOAT_KEY: "true"}
     assert JC.supported_cast(JAX_TYPES[TYPES[src]], JAX_TYPES[dst])
-    df = port_df(TpuSession(device="cpu"), {src: data[src]})
-    with pytest.raises(NotImplementedError, match="cast"):
-        df.select(PL.col(src).cast(dst).alias("x")).physical_plan()
+    want = jax_df({src: data[src]}, conf).select(
+        JL.col(src).cast(dst).alias("x")).collect()
+    got = port_df(TpuSession(dict(conf), device="cpu"),
+                  {src: data[src]}).select(
+        PL.col(src).cast(dst).alias("x")).collect()
+    assert len(got) == N and got == want
+    # no date text is a boolean word
+    assert any(r[0] is not None for r in got) == ((src, dst)
+                                                 != ("ds", "boolean"))
 
 
 @pytest.mark.parametrize("src,dst", [("d", "boolean"), ("x", "string"),
@@ -355,7 +360,7 @@ def test_the_fold_equals_the_column_cast():
         torch.ones(len(raw), dtype=torch.bool), PT.StringType,
         torch.tensor([len(x) for x in raw], dtype=torch.int32)),
         PT.DateType)
-    folded = [_date_literal(x) for x in strings]
+    folded = [PC.fold_string(x, PT.DateType) for x in strings]
     column = [int(v) if ok else None for v, ok in
               zip(col.data.tolist(), col.valid.tolist())]
     assert folded == column == [

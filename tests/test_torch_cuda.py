@@ -13,6 +13,7 @@ import pytest
 import torch
 
 import test_torch_arithmetic as XA
+import test_torch_cast_text as XT
 import test_torch_datetime as XD
 import test_torch_expressions as X
 import test_torch_strings as XS
@@ -752,3 +753,45 @@ def test_partsupp_queries_on_card_match_cpu(dev, plan):
         else:
             assert tpch.rows_match(want, got), name
             assert tpch.rows_match(oracle, got), name
+
+
+@pytest.mark.parametrize("src,dst", XT.ROUTES,
+                         ids=[f"{XT.TYPES[s]}-{d}" for s, d in XT.ROUTES])
+def test_text_casts_on_card_match_cpu(dev, src, dst):
+    """Each cast between text and numbers or booleans, and between
+    numbers and booleans, over tests/test_torch_cast_text.py's seeded
+    table (integer extremes, subnormal, NaN and +-0 doubles, text with
+    malformed rows, nulls) on the card and on the CPU: the same bits,
+    null masks and, for text, bytes and lengths."""
+    data = XT.table()
+    want, got = (XT.port_route(data, src, dst, d) for d in ("cpu", dev))
+    parts = [(got.data, want.data), (got.valid, want.valid)]
+    if want.lengths is not None:
+        parts.append((got.lengths, want.lengths))
+    for g, w in parts:
+        g = g.cpu()
+        if g.is_floating_point():
+            ints = {torch.float64: torch.int64, torch.float32: torch.int32}
+            g, w = g.view(ints[g.dtype]), w.view(ints[w.dtype])
+        assert torch.equal(g, w)
+
+
+def test_text_queries_on_card_match_cpu(dev):
+    """tpch.TEXT_QUERIES at SF0.01 on the card and on the CPU, over
+    several batches: the same rows, each equal to its numpy oracle
+    (q1_text's floats within rel 1e-9; text_roundtrip exact)."""
+    from spark_rapids_tpu_torch import TpuSession, tpch
+    t = tpch.generate_lineitem(0.01)
+    tables = {"lineitem": (t, tpch.LINEITEM),
+              "lineitem_text": (tpch.text_lineitem(t), tpch.LINEITEM_TEXT)}
+    conf = {"spark.rapids.sql.variableFloatAgg.enabled": "true",
+            "spark.rapids.sql.castStringToFloat.enabled": "true",
+            "spark.rapids.sql.reader.batchSizeRows": "20000"}
+    for name, query in tpch.TEXT_QUERIES.items():
+        rows = []
+        for device in ("cpu", dev):
+            table, schema = tables[tpch.TEXT_INPUTS[name]]
+            rows.append(query(TpuSession(conf, device=device)
+                              .from_numpy(table, schema)).collect())
+        assert rows[0] and tpch.rows_match(rows[0], rows[1]), name
+        assert tpch.rows_match(tpch.ORACLES[name](t), rows[1]), name

@@ -400,10 +400,9 @@ def test_a_null_column_added_by_with_column_raises_at_planning(jax_df,
 
 # the casts the JAX package's coerce_pair inserts: a string side cast to
 # the other side's type, and a date widened to a timestamp.  The port
-# lacks string -> int, and runs string -> timestamp only with
-# castStringToTimestamp (off by default), so those raise; the date
-# widened to a timestamp is ported (PORTED_CASTS) and gives the JAX
-# package's rows
+# runs string -> timestamp only with castStringToTimestamp (off by
+# default), so that one raises; the rest are ported (PORTED_CASTS) and
+# give the JAX package's rows
 CASTS = {
     "int-eq-string-literal": lambda a: a.col("i") == "2",
     "string-eq-int": lambda a: a.col("s") == a.col("i"),
@@ -413,7 +412,8 @@ CASTS = {
 }
 
 
-PORTED_CASTS = ("timestamp-gt-date",)
+PORTED_CASTS = ("int-eq-string-literal", "string-eq-int", "string-plus-int",
+                "timestamp-gt-date")
 
 
 @pytest.mark.parametrize("case", list(CASTS))
@@ -447,16 +447,22 @@ def test_a_cast_the_port_lacks_raises_not_implemented_at_planning(case):
 
 @pytest.mark.parametrize("op", ["Divide", "IntegralDivide", "Remainder",
                                 "Pmod"])
-def test_arithmetic_on_a_string_column_raises_at_planning(op, jax_df,
+def test_arithmetic_on_a_string_column_gives_the_jax_rows(op, jax_df,
                                                           port_table):
     """The JAX package casts a string side to the other side's type and
-    runs the op; the port lacks that cast and raises when the plan is
-    made."""
+    runs the op, and so does the port: over the string column (letters,
+    null as an int) and over the int column's text."""
     def build(a):
-        return a.E(op, (a.col("s"), a.col("i"))).alias("x")
-    assert len(jax_df.select(build(_jax_api())).collect()) == N
-    with pytest.raises(NotImplementedError, match="cast"):
-        port_table.select(build(PORT)).physical_plan()
+        return [a.E(op, (a.col("s"), a.col("i"))).alias("x"),
+                a.E(op, (a.col("i2").cast("string"), a.col("i"))).alias("y"),
+                a.E(op, (a.col("l"), a.lit("3"))).alias("z")]
+    jtypes, want = jax_columns(jax_df.select(*build(_jax_api())))
+    ptypes, got = port_columns(port_table.select(*build(PORT)))
+    assert ptypes == jtypes
+    for k, ((wv, wok), (gv, gok)) in enumerate(zip(want, got)):
+        assert len(gok) == N and np.array_equal(wok, gok), (op, k)
+        assert same_values(wv, gv, wok), (op, k, wv[wok][:8], gv[gok][:8])
+    assert got[1][1].any() and got[2][1].any()
 
 
 @pytest.mark.parametrize("mixed", [False, True], ids=["alone", "mixed"])
