@@ -115,7 +115,27 @@ Phases, each printing a line:
      and back; integers, exact); each with the numbers of a phase 3
      `query` line (`text_query` lines); q1_text must launch K3 (its
      order-by), and every shape they launch joins the shapes checked
-     against the plain versions.
+     against the plain versions;
+  9. math, bitwise and hash: (a) each class of the bitwise family,
+     ops/math.py and murmur3 (every type alone, and all columns folded)
+     on the card against the CPU over seeded 2^22-row columns
+     (`math_batch`: integers of each width at their extremes, doubles
+     pairing every special value with every other, +-1e19, subnormals,
+     values a hair off +-1 and on the x.5 boundaries of the round
+     scales, shift counts of -70..70 and beyond, text of 0-64 random
+     bytes, 10% nulls): bitwise, shifts, Floor, Ceil, Rint, Round,
+     BRound, Signum, Sqrt, ToDegrees, ToRadians and murmur3 bit for bit
+     (any NaN equal to any NaN), the other classes within MATH_REL with
+     NaN and infinite positions exact, null masks exact, each with its
+     time on the card (`math_expr` lines); (b) tpch.MATH_QUERIES over the
+     resident lineitem through TpuSession(device="cuda"):
+     `price_dispersion` (per-supplier stdev / mean, the top 100; must
+     launch K1, K2 and K3), `price_decades` (a log-scale price
+     histogram), `hash_partitions` (pmod(hash(l_orderkey), 200)) and
+     `hash_sample` (a 1-in-64 sample by a five-column hash), each held to
+     its numpy oracle (`tpch.match_math_query`) with the numbers of a
+     phase 3 `query` line (`math_query` lines); every shape they launch
+     joins the shapes checked against the plain versions.
 A `phase_seconds` line gives each phase's wall seconds.  The
 second-last line is the card as nvidia-smi names it; the last is
 {"ok": true, "device": {...}}.  Any failure raises: nothing is caught,
@@ -140,7 +160,10 @@ from spark_rapids_tpu_torch.exec.broadcast import TpuBroadcastHashJoinExec
 from spark_rapids_tpu_torch.exec.join import (TpuHashJoinExec,
                                               TpuReorderColumnsExec)
 from spark_rapids_tpu_torch.ops import datetime_exprs as D
+from spark_rapids_tpu_torch.ops import expressions as E
+from spark_rapids_tpu_torch.ops import hashing as H
 from spark_rapids_tpu_torch.ops import kernels as K
+from spark_rapids_tpu_torch.ops import math as M
 from spark_rapids_tpu_torch.ops.cast import Cast, cast_column
 from spark_rapids_tpu_torch.ops.expressions import BoundReference, Literal
 from spark_rapids_tpu_torch.types import (
@@ -178,6 +201,7 @@ SORT_PATH = ("q10", "q13", "q15", "q17", "q18", "q21", "q2", "q11", "q16",
 DATE_PART_ROWS = 1 << 24
 DATE_ARITH_ROWS = 1 << 24
 TEXT_CAST_ROWS = 1 << 22
+MATH_ROWS = 1 << 22
 # text the JAX package's parses read apart from Spark: digit sums that
 # wrap in int64, a mantissa of more than 19 digits, 10^23, scales past
 # 10^308
@@ -675,22 +699,30 @@ def date_arith_cases(schema: Schema) -> list:
     return cases
 
 
-def _same_bits(got: torch.Tensor, want: torch.Tensor) -> bool:
-    """Equal dtype and bits (a float by its bits, NaN too)."""
+def _same_bits(got: torch.Tensor, want: torch.Tensor,
+               any_nan: bool = False) -> bool:
+    """Equal dtype and bits (a float by its bits, NaN too, unless
+    `any_nan`: then any NaN equals any NaN, as the card's arithmetic
+    gives its own NaN where the CPU passes an operand's on)."""
     if got.dtype != want.dtype:
         return False
+    got = got.cpu()
     if got.is_floating_point():
+        nan = torch.isnan(got) & torch.isnan(want) if any_nan \
+            else torch.zeros_like(got, dtype=torch.bool)
         ints = {torch.float64: torch.int64, torch.float32: torch.int32}
-        got, want = got.view(ints[got.dtype]), want.view(ints[want.dtype])
-    return torch.equal(got.cpu(), want)
+        return bool(torch.all(nan | (got.view(ints[got.dtype])
+                                     == want.view(ints[want.dtype]))))
+    return torch.equal(got, want)
 
 
 def check_on_card(kind: str, cpu: ColumnarBatch, cases: list,
-                  dev: torch.device) -> None:
+                  dev: torch.device, approx: set = None) -> None:
     """Each (name, expression) of `cases` over batch `cpu` and its copy
     on the card: values (floats by their bits), null masks and, for
     text, bytes and lengths exact; one `kind` line each, with its time
-    on the card."""
+    on the card.  With `approx` (phase 9) any NaN equals any NaN, and a
+    case named in it is held by `_close` instead of bits."""
     card = ColumnarBatch(
         [Column(c.data.to(dev), c.valid.to(dev), c.dtype,
                 None if c.lengths is None else c.lengths.to(dev))
@@ -700,14 +732,34 @@ def check_on_card(kind: str, cpu: ColumnarBatch, cases: list,
         parts = [(got.data, want.data), (got.valid, want.valid)]
         if want.dtype is StringType:
             parts.append((got.lengths, want.lengths))
-        ok = got.dtype is want.dtype and all(_same_bits(g, w)
-                                             for g, w in parts)
+        if approx is not None and name in approx:
+            ok = (got.dtype is want.dtype and _close(got.data, want.data)
+                  and _same_bits(got.valid, want.valid))
+        else:
+            ok = got.dtype is want.dtype and all(
+                _same_bits(g, w, approx is not None) for g, w in parts)
         print(f"{kind} " + json.dumps({
             "case": name, "type": want.dtype.name, "rows": cpu.capacity,
             "valid_rows": int(want.valid.sum()), "matches_cpu": ok,
             "ms": time_ms(lambda: expr.eval(card))}), flush=True)
         if not ok:
-            raise AssertionError(f"{name} on the card differs from the CPU")
+            g, w = got.data.cpu(), want.data
+            same = g == w
+            if w.is_floating_point():
+                same |= g.isnan() & w.isnan()
+                if approx is not None and name in approx:
+                    same |= ((g - w).abs() <= MATH_REL * w.abs()) \
+                        & g.isfinite() & w.isfinite()
+            bad = torch.nonzero(~same | (got.valid.cpu() != want.valid))
+            refs, stack = [], [expr]
+            while stack:
+                e = stack.pop()
+                refs += [e.index] if isinstance(e, BoundReference) else []
+                stack.extend(e.children)
+            rows = [(int(i), [cpu.columns[k].data[i].tolist() for k in refs],
+                     w[i].tolist(), g[i].tolist()) for i in bad[:4, 0]]
+            raise AssertionError(f"{name} on the card differs from the CPU;"
+                                 f" (row, inputs, cpu, card): {rows}")
 
 
 def check_date_arith(dev: torch.device) -> None:
@@ -904,6 +956,196 @@ def run_text_queries(li_df, lineitem: dict, device: str = "cuda") -> list:
     return shapes
 
 
+# phase 9 (a): the classes held bit for bit (the rest within MATH_REL)
+MATH_EXACT = {"BitwiseAnd", "BitwiseOr", "BitwiseXor", "BitwiseNot",
+              "ShiftLeft", "ShiftRight", "ShiftRightUnsigned", "Floor",
+              "Ceil", "Rint", "Round", "BRound", "Signum", "Sqrt",
+              "ToDegrees", "ToRadians", "Murmur3Hash"}
+MATH_REL = 1e-13  # relative, where both sides are finite
+# every special double against every other (x against x2), then edges:
+# +-1e19, subnormals, a hair off +-1, x.5 boundaries of the round scales,
+# where exp, cosh and sinh overflow
+MATH_SPECIAL = [np.nan, 0.0, -0.0, np.inf, -np.inf, 1.0, -1.0, 0.5, -2.5,
+                2.0, 5e-324]
+MATH_EDGES = [1e19, -1e19, -2.5e-310, 1e-310, 2.2250738585072014e-308,
+              np.nextafter(1.0, 2.0), np.nextafter(1.0, 0.0),
+              -np.nextafter(1.0, 2.0), 2.5, -0.5, 0.125, 1.005, 2.675, 0.15,
+              12345.5, 4503599627370495.5, 709.9, 710.0, -745.5, 1e308,
+              1.7976931348623157e308, 8.0, -27.0, 1e-306, 1e-40]
+
+
+def math_batch(n: int, seed: int = 42) -> ColumnarBatch:
+    """The CPU batch of phase 9 (a): byte, short, int and long columns
+    over their whole ranges, extremes first; two doubles pairing every
+    special value with every other, then MATH_EDGES, then values on the
+    x.5 boundaries of the round scales, uniform in +-50, a hair off +-1,
+    subnormals and magnitudes 10^-30 to 10^30; their float; booleans; a
+    date and a timestamp; shift counts of -70..70 (int), beyond the int
+    range (long), a byte and a double with fractions, NaN and
+    infinities; and text of 0 to 64 random bytes (>= 0x80 among them,
+    so not UTF-8); 10% nulls in every column past the edge rows."""
+    rng = np.random.default_rng(seed)
+    cols = {}
+    for name, dt, t in (("i8", np.int8, ByteType), ("i16", np.int16,
+                                                     ShortType),
+                        ("i32", np.int32, IntegerType),
+                        ("i64", np.int64, LongType)):
+        info = np.iinfo(dt)
+        v = rng.integers(info.min, info.max, n, dtype=dt, endpoint=True)
+        v[:6] = [info.min, info.max, 0, -1, 1, info.min + 1]
+        cols[name] = (v, t)
+    k = len(MATH_SPECIAL) ** 2
+    edge = k + len(MATH_EDGES)
+
+    def doubles():
+        pick = rng.random(n)
+        half = ((rng.integers(-10 ** 6, 10 ** 6, n) + 0.5)
+                / 10.0 ** rng.integers(0, 5, n))
+        near_one = np.sign(pick - 0.5) * (1.0 + rng.integers(-8, 9, n)
+                                          * 2.0 ** -52)
+        return np.select(
+            [pick < 0.25, pick < 0.5, pick < 0.55, pick < 0.6],
+            [half, rng.uniform(-50, 50, n), near_one,
+             rng.random(n) * 2.0 ** -1022],
+            rng.normal(0, 1, n) * 10.0 ** rng.integers(-30, 30, n))
+    x, x2 = doubles(), doubles()
+    x[:k] = np.repeat(MATH_SPECIAL, len(MATH_SPECIAL))
+    x2[:k] = np.tile(MATH_SPECIAL, len(MATH_SPECIAL))
+    x[k:edge] = MATH_EDGES
+    x2[k:edge] = MATH_EDGES[::-1]
+    cols["x"], cols["x2"] = (x, DoubleType), (x2, DoubleType)
+    with np.errstate(over="ignore"):
+        cols["f"] = (x.astype(np.float32), FloatType)
+    cols["b"] = (rng.random(n) < 0.5, BooleanType)
+    cols["b2"] = (rng.random(n) < 0.5, BooleanType)
+    cols["d"] = (rng.integers(-150_000, 150_000, n, dtype=np.int32),
+                 DateType)
+    cols["t"] = (rng.integers(-2 ** 62, 2 ** 62, n), TimestampType)
+    cols["n"] = (rng.integers(-70, 71, n, dtype=np.int32), IntegerType)
+    cols["nl"] = (rng.integers(-2 ** 63, 2 ** 63 - 1, n), LongType)
+    cols["n8"] = (rng.integers(-128, 128, n, dtype=np.int8), ByteType)
+    xc = rng.uniform(-70, 70, n)
+    xc[:8] = [np.nan, np.inf, -np.inf, -1e-20, 32.0, 63.5, 1e19, -0.0]
+    cols["xc"] = (xc, DoubleType)
+    valid = {k: rng.random(n) >= 0.1 for k in list(cols) + ["s"]}
+    for ok in valid.values():
+        ok[:edge] = True
+    data = {k: np.ma.masked_array(v, mask=~valid[k])
+            for k, (v, _) in cols.items()}
+    schema = Schema([StructField(k, t) for k, (_, t) in cols.items()])
+    batch = TpuSession(device="cpu").from_numpy(data, schema).plan.table
+    # text: random bytes, zero past each length and in null rows
+    lens = rng.integers(0, 65, n).astype(np.int32)
+    raw = rng.integers(0, 256, (n, 64), dtype=np.uint8)
+    raw[np.arange(64)[None, :] >= lens[:, None]] = 0
+    raw[~valid["s"]], lens[~valid["s"]] = 0, 0
+    text = Column(torch.from_numpy(raw), torch.from_numpy(valid["s"]),
+                  StringType, torch.from_numpy(lens))
+    return ColumnarBatch(list(batch.columns) + [text], batch.sel,
+                         Schema(list(schema)
+                                + [StructField("s", StringType)]))
+
+
+def math_cases(schema: Schema) -> list:
+    """(name, expression) of each case phase 9 (a) checks, over
+    `math_batch`'s columns: every class of the bitwise, math and
+    murmur3 families, murmur3 over each type alone and over all."""
+    def c(name):
+        i = schema.index_of(name)
+        return BoundReference(i, schema[i].dtype, name)
+
+    def lit(v):
+        return Literal(v)
+    cases = []
+    for cls in (E.BitwiseAnd, E.BitwiseOr, E.BitwiseXor):
+        cases += [(f"{cls.__name__}({a}, {b})", cls(c(a), c(b)))
+                  for a, b in (("i32", "n"), ("i64", "nl"), ("i8", "i16"),
+                               ("b", "b2"))]
+    cases += [(f"BitwiseNot({a})", E.BitwiseNot(c(a)))
+              for a in ("i8", "i16", "i32", "i64", "b")]
+    for cls in (E.ShiftLeft, E.ShiftRight, E.ShiftRightUnsigned):
+        cases += [(f"{cls.__name__}({a}, {b})", cls(c(a), c(b)))
+                  for a, b in (("i8", "n"), ("i16", "n"), ("i32", "n"),
+                               ("i64", "n"), ("i32", "nl"), ("i64", "xc"),
+                               ("b", "n"))]
+    for name, cls in M.MATH_EXPRESSIONS.items():
+        if name in ("Round", "BRound"):
+            cases += [(f"{name}({a}, {s})", cls(c(a), lit(s)))
+                      for a, s in (("x", 0), ("x", 2), ("x", -2),
+                                   ("x", 300), ("f", 1), ("i64", -3),
+                                   ("i64", -19), ("i8", -2), ("t", -3))]
+        elif issubclass(cls, E.BinaryExpression):
+            cases += [(f"{name}({a}, {b})", cls(c(a), c(b)))
+                      for a, b in (("x", "x2"), ("f", "i32"))]
+        else:
+            cases += [(f"{name}({a})", cls(c(a)))
+                      for a in (("x", "f", "i64") if name in (
+                          "Sqrt", "Floor", "Ceil") else ("x",))]
+    cases += [(f"Murmur3Hash({a})", H.Murmur3Hash(c(a)))
+              for a in ("i8", "i16", "i32", "i64", "d", "t", "b", "f", "x",
+                        "s")]
+    cases.append(("Murmur3Hash(all)", H.Murmur3Hash(
+        *[c(f.name) for f in schema])))
+    return cases
+
+
+def _close(got: torch.Tensor, want: torch.Tensor) -> bool:
+    """Equal NaN and infinite positions, and where both are finite,
+    within MATH_REL of each other."""
+    got = got.cpu()
+    nan, fin = torch.isnan(want), torch.isfinite(want)
+    if not (torch.equal(torch.isnan(got), nan)
+            and torch.equal(torch.isfinite(got), fin)
+            and torch.equal(got[~nan & ~fin], want[~nan & ~fin])):
+        return False
+    g, w = got[fin], want[fin]
+    rel = (g - w).abs() / w.abs().clamp_min(torch.finfo(w.dtype).tiny)
+    return not rel.numel() or float(rel.max()) <= MATH_REL
+
+
+def check_math(dev: torch.device) -> None:
+    """Phase 9 (a): each case of `math_cases` on the card against the
+    CPU (`check_on_card`): MATH_EXACT's classes by their bits, the
+    others within MATH_REL; null masks exact."""
+    cpu = math_batch(MATH_ROWS)
+    cases = math_cases(cpu.schema)
+    check_on_card("math_expr", cpu, cases, dev, approx={
+        name for name, e in cases if type(e).__name__ not in MATH_EXACT})
+
+
+def run_math_queries(li_df, lineitem: dict) -> list:
+    """Phase 9 (b): each of tpch.MATH_QUERIES over the resident lineitem
+    against its numpy oracle (`measure`, `tpch.match_math_query`), with
+    the numbers of a phase 3 `query` line; price_dispersion must launch
+    K1, K2 and K3 (its 100,000 suppliers take the sort path).  Returns
+    the (kernel, shape) pairs they launched."""
+    shapes = []
+    for name, query in tpch.MATH_QUERIES.items():
+        resident = torch.cuda.memory_allocated()
+        got, df, numbers, launched = measure(lambda query=query:
+                                             query(li_df))
+        shapes += launched
+        t0 = time.perf_counter()
+        want = tpch.ORACLES[name](lineitem)
+        oracle_s = time.perf_counter() - t0
+        match = tpch.match_math_query(name, want, got)
+        plan = df.session.last_plan
+        print("math_query " + json.dumps({
+            "query": name, "rows": len(got), "matches_oracle": match,
+            "oracle_s": oracle_s, "joins": join_nodes(plan),
+            "agg_update_paths": _update_paths(plan),
+            "resident_device_bytes": resident, **numbers,
+            "result": got[:8]}), flush=True)
+        if not match or not got:
+            raise AssertionError(f"{name} disagrees with the numpy oracle "
+                                 f"or is empty: {got[:3]} vs {want[:3]}")
+        if name == "price_dispersion" \
+                and not all(numbers["launches"].values()):
+            raise AssertionError(f"price_dispersion did not launch every "
+                                 f"kernel: {numbers['launches']}")
+    return shapes
+
+
 def shape_launches(before: list = ()) -> list:
     """[kernel, shape, launches] of every kernel shape launched since the
     last reset, less the launches in `before` (an earlier reading)."""
@@ -1085,14 +1327,18 @@ def main() -> int:
     ends.append(("date arithmetic and casts", time.perf_counter()))
     check_text_casts(dev)
     shapes += run_text_queries(dfs["lineitem"], tables["lineitem"])
-    del dfs
     torch.cuda.empty_cache()
     ends.append(("text casts", time.perf_counter()))
+    check_math(dev)
+    shapes += run_math_queries(dfs["lineitem"], tables["lineitem"])
+    del dfs
+    torch.cuda.empty_cache()
+    ends.append(("math, bitwise and hash", time.perf_counter()))
     shapes = list(dict.fromkeys(shapes))
     rest = [ks for ks in shapes if ks not in checked]
     print(f"kernels: {len(shapes) - len(rest)} of the {len(shapes)} shapes "
-          f"launched by the queries, filters, outer joins, date and text "
-          f"queries were checked in phase 2; checking the other "
+          f"launched by the queries, filters, outer joins, date, text and "
+          f"math queries were checked in phase 2; checking the other "
           f"{len(rest)}", flush=True)
     check_kernels(gen, dev, rest, report)
     ends.append(("launched shapes", time.perf_counter()))

@@ -139,6 +139,12 @@ def infer_literal_type(v) -> DataType:
 # --------------------------------------------------------------------------
 
 class BinaryExpression(Expression):
+    """A binary op over both sides promoted to one type, null where
+    either side is.  With `promote_children` false (the shifts) neither
+    side is promoted and the result has the left side's type."""
+
+    promote_children = True
+
     def __init__(self, left: Expression, right: Expression):
         self.left = left
         self.right = right
@@ -150,19 +156,24 @@ class BinaryExpression(Expression):
 
     @property
     def dtype(self):
-        return self.promoted_type
+        if self.promote_children:
+            return self.promoted_type
+        return self.left.dtype
 
     def eval(self, batch):
         l = self.left.eval(batch)
         r = self.right.eval(batch)
-        t = self.promoted_type.torch_dtype
-        data, valid = self.do_op(l.data.to(t), r.data.to(t),
-                                 _all_valid(l, r))
+        ld, rd = l.data, r.data
+        if self.promote_children:
+            t = self.promoted_type.torch_dtype
+            ld, rd = ld.to(t), rd.to(t)
+        data, valid = self.do_op(ld, rd, _all_valid(l, r))
         return Column(data, valid, self.dtype).mask_invalid()
 
     def do_op(self, l, r, valid):
-        """(data, valid) of the op over both sides' data, already in the
-        promoted type, and the rows where both sides are valid."""
+        """(data, valid) of the op over both sides' data (in the promoted
+        type when `promote_children`) and the rows where both sides are
+        valid."""
         raise NotImplementedError
 
 
@@ -195,17 +206,24 @@ class Multiply(BinaryExpression):
         return l * r, valid
 
 
-def _to_long(x: torch.Tensor) -> torch.Tensor:
-    """x as int64, a float converted as the JAX package converts it:
-    truncated, saturating at the int64 range, NaN to 0 (a plain torch
-    cast gives INT64_MIN there on the CPU and is undefined on the card)."""
+def to_int(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """x as integer type `dtype`, a float converted as the JAX package
+    converts it: truncated, saturating at the type's range, NaN to 0 (a
+    plain torch cast wraps or gives the minimum there on the CPU and is
+    undefined on the card).  An integer or boolean x converts as torch
+    converts it, wrapping as jnp's astype does."""
     if not x.is_floating_point():
-        return x.to(torch.int64)
-    big = x >= 2.0 ** 63
-    small = x < -2.0 ** 63
-    out = torch.where(big | small | torch.isnan(x), 0.0, x).to(torch.int64)
-    out = torch.where(big, torch.iinfo(torch.int64).max, out)
-    return torch.where(small, torch.iinfo(torch.int64).min, out)
+        return x.to(dtype)
+    info = torch.iinfo(dtype)
+    big = x >= float(info.max) + 1.0  # a power of two, exact
+    small = x < float(info.min)
+    out = torch.where(big | small | torch.isnan(x), 0.0, x).to(dtype)
+    out = torch.where(big, info.max, out)
+    return torch.where(small, info.min, out)
+
+
+def _to_long(x: torch.Tensor) -> torch.Tensor:
+    return to_int(x, torch.int64)
 
 
 def _trunc_div(l, r):
@@ -307,6 +325,131 @@ class Abs(_ArithUnary):
 
     def do_op(self, x):
         return torch.abs(x)
+
+
+# --------------------------------------------------------------------------
+# bitwise
+# --------------------------------------------------------------------------
+
+def _integral_side(op: str, dt: DataType, floating: bool = False) -> None:
+    """Raise for a side jnp's bitwise ops reject when the JAX package
+    evaluates them (a float, except as a shift count; a string, whose
+    byte matrix does not broadcast against a column), here, when the
+    tree is built."""
+    if dt.is_string or (dt.is_floating and not floating):
+        raise NotImplementedError(f"{op} of a {dt.name} column: the JAX "
+                                  "package cannot evaluate it")
+
+
+class _Bitwise(BinaryExpression):
+    """And, Or and Xor of both sides promoted to one integral type (a
+    boolean pair stays boolean, as in jnp)."""
+
+    def __init__(self, left: Expression, right: Expression):
+        super().__init__(left, right)
+        if left.dtype is not NullType and right.dtype is not NullType:
+            _integral_side(type(self).__name__, self.promoted_type)
+
+
+class BitwiseAnd(_Bitwise):
+    def do_op(self, l, r, valid):
+        return l & r, valid
+
+
+class BitwiseOr(_Bitwise):
+    def do_op(self, l, r, valid):
+        return l | r, valid
+
+
+class BitwiseXor(_Bitwise):
+    def do_op(self, l, r, valid):
+        return l ^ r, valid
+
+
+class BitwiseNot(_Unary):
+    """~x in the child's type (a boolean's logical not, as in jnp); the
+    child's validity, and its null slots go through the op."""
+
+    def __init__(self, child: Expression):
+        _integral_side("BitwiseNot", child.dtype)
+        super().__init__(child)
+
+    def eval(self, batch):
+        c = self.child.eval(batch)
+        return Column(~c.data, c.valid, self.dtype)
+
+
+class _Shift(BinaryExpression):
+    """A shift of the left side by the right side's count, in the left
+    side's type: the count is taken modulo that type's width in bits (a
+    floor modulo), so a byte shifts within 8 bits and a short within 16.
+    A boolean left side shifts as a byte, as jnp shifts it, and comes
+    out as a boolean: true where the shifted value is not zero (jnp
+    leaves the int64 value under the boolean type, which is what its
+    collect reads)."""
+
+    promote_children = False
+
+    def __init__(self, left: Expression, right: Expression):
+        super().__init__(left, right)
+        _integral_side(type(self).__name__, left.dtype)
+        _integral_side(type(self).__name__, right.dtype, floating=True)
+
+    def do_op(self, l, r, valid):
+        if l.dtype == torch.bool:
+            return self.shift(l.to(torch.int64), r, 8, torch.bool) != 0, \
+                valid
+        return self.shift(l, r, l.element_size() * 8, l.dtype), valid
+
+    def shift(self, l, r, bits: int, left_type: torch.dtype):
+        """l shifted by count r, both tensors; `bits` is the width of
+        the left side's type `left_type`."""
+        raise NotImplementedError
+
+
+def _count(r: torch.Tensor, dtype: torch.dtype, bits: int) -> torch.Tensor:
+    """The count of ShiftLeft and ShiftRight: r converted to the left
+    side's type (a long count wraps to an int; a float one truncates,
+    saturating, NaN to 0; a boolean left side's type is boolean), then
+    modulo `bits`."""
+    if dtype == torch.bool:
+        return r.to(torch.bool).to(torch.int64)  # 0 or 1, below 8
+    return torch.remainder(to_int(r, dtype), bits)
+
+
+class ShiftLeft(_Shift):
+    def shift(self, l, r, bits, left_type):
+        return l << _count(r, left_type, bits)
+
+
+class ShiftRight(_Shift):
+    def shift(self, l, r, bits, left_type):
+        return l >> _count(r, left_type, bits)
+
+
+_M32 = (1 << 32) - 1
+
+
+class ShiftRightUnsigned(_Shift):
+    """A logical shift right: the left side read as an unsigned 32-bit
+    word (a byte, short or int sign-extended first) or a 64-bit one, the
+    count taken modulo the left type's width in the count's own type,
+    the result wrapped back into the left side's type.  Carried in
+    int64: a masked arithmetic shift."""
+
+    def shift(self, l, r, bits, left_type):
+        if r.dtype == torch.bool:
+            r = r.to(torch.int64)
+        # the count modulo the width in its own type, then converted (a
+        # float count truncated, NaN to 0)
+        s = to_int(torch.remainder(r, bits), torch.int64)
+        if bits < 64:
+            return ((l.to(torch.int64) & _M32) >> s).to(l.dtype)
+        # 64 bits: the arithmetic shift's sign fill masked off; a count
+        # of 0 keeps every bit, and 1 << 64 does not fit
+        nz = torch.where(s == 0, 1, s)
+        mask = (1 << (64 - nz)) - 1
+        return torch.where(s == 0, l, (l >> nz) & mask)
 
 
 def _cmp_prep(l, r):
@@ -856,7 +999,8 @@ EXPRESSIONS = {c.__name__: c for c in (
     UnaryMinus, Abs, EqualTo, LessThan, GreaterThan,
     LessThanOrEqual, GreaterThanOrEqual, EqualNullSafe, And, Or, Not,
     IsNull, IsNotNull, IsNaN, Coalesce, NaNvl, NormalizeNaNAndZero,
-    KnownFloatingPointNormalized)}
+    KnownFloatingPointNormalized, BitwiseAnd, BitwiseOr, BitwiseXor,
+    BitwiseNot, ShiftLeft, ShiftRight, ShiftRightUnsigned)}
 COMPARISONS = ("EqualTo", "LessThan", "GreaterThan", "LessThanOrEqual",
                "GreaterThanOrEqual", "EqualNullSafe")
 ARITHMETIC = ("Add", "Subtract", "Multiply", "Divide", "IntegralDivide",

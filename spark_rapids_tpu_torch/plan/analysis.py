@@ -20,10 +20,12 @@ from typing import List, Optional, Tuple
 
 from ..ops import datetime_exprs as D
 from ..ops import expressions as E
+from ..ops import math as M
 from ..ops import strings as S
 from ..ops.aggregates import AGG_FUNCS, AggregateExpression
 from ..exec.join import joined_schema
 from ..ops.cast import Cast, supported_cast
+from ..ops.hashing import Murmur3Hash
 from ..types import DateType, NullType, Schema, TimestampType, promote
 from .logical import ColumnExpr, LogicalJoin, col
 
@@ -109,6 +111,11 @@ def resolve(ce, schema: Schema) -> E.Expression:
         return D.DATE_PARTS[op](resolve(ce.args[0], schema))
     if op in D.DATE_FUNCTIONS:
         return D.DATE_FUNCTIONS[op](*[resolve(a, schema) for a in ce.args])
+    if op in M.MATH_EXPRESSIONS:
+        return M.MATH_EXPRESSIONS[op](*[resolve(a, schema)
+                                        for a in ce.args])
+    if op == "Murmur3Hash":
+        return Murmur3Hash(*[resolve(a, schema) for a in ce.args])
     if op in E.EXPRESSIONS:
         args = [resolve(a, schema) for a in ce.args]
         if len(args) == 2 and (op in E.COMPARISONS or op in E.ARITHMETIC):

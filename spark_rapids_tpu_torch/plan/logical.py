@@ -10,8 +10,13 @@ parts `year`, `month`, `dayofmonth`, `hour`, `minute` and `second`,
 `cast` (to a type or its name), `to_date`, `date_add`, `date_sub`,
 `datediff`, `add_months`, `months_between`, `trunc` and `next_day`
 (UnixTimestamp, FromUnixTime, TimeAdd and TimeSub have no function, in
-the JAX package either: they are built by op name), `SortOrder`, and the
-scan, filter, project, aggregate, join, sort and limit nodes.  Op names
+the JAX package either: they are built by op name), the math functions
+`sqrt`, `exp`, `log`, `pow`, `floor`, `ceil`, `round`, `bround`,
+`hypot`, `cot`, `log_base`, `asinh`, `acosh` and `atanh`, and `hash`
+(the other math classes and the bitwise ones have no function in the JAX
+package either: `ColumnExpr("Sin", (e,))`, `ColumnExpr("ShiftLeft", (e,
+n))`), `SortOrder`, and the scan, filter, project, aggregate, join, sort
+and limit nodes.  Op names
 and argument layouts are the JAX package's, so one ColumnExpr tree means
 the same to both.
 """
@@ -229,6 +234,66 @@ class functions:
     @staticmethod
     def greatest(*exprs):
         return ColumnExpr("Greatest", tuple(_wrap(e) for e in exprs))
+
+    @staticmethod
+    def sqrt(e):
+        return ColumnExpr("Sqrt", (_wrap(e),))
+
+    @staticmethod
+    def exp(e):
+        return ColumnExpr("Exp", (_wrap(e),))
+
+    @staticmethod
+    def log(e):
+        return ColumnExpr("Log", (_wrap(e),))
+
+    @staticmethod
+    def pow(a, b):
+        return ColumnExpr("Pow", (_wrap(a), _wrap(b)))
+
+    @staticmethod
+    def floor(e):
+        return ColumnExpr("Floor", (_wrap(e),))
+
+    @staticmethod
+    def ceil(e):
+        return ColumnExpr("Ceil", (_wrap(e),))
+
+    @staticmethod
+    def round(e, scale=0):
+        return ColumnExpr("Round", (_wrap(e), _wrap(scale)))
+
+    @staticmethod
+    def bround(e, scale=0):
+        return ColumnExpr("BRound", (_wrap(e), _wrap(scale)))
+
+    @staticmethod
+    def hypot(a, b):
+        return ColumnExpr("Hypot", (_wrap(a), _wrap(b)))
+
+    @staticmethod
+    def cot(e):
+        return ColumnExpr("Cot", (_wrap(e),))
+
+    @staticmethod
+    def log_base(base, e):
+        return ColumnExpr("Logarithm", (_wrap(base), _wrap(e)))
+
+    @staticmethod
+    def asinh(e):
+        return ColumnExpr("Asinh", (_wrap(e),))
+
+    @staticmethod
+    def acosh(e):
+        return ColumnExpr("Acosh", (_wrap(e),))
+
+    @staticmethod
+    def atanh(e):
+        return ColumnExpr("Atanh", (_wrap(e),))
+
+    @staticmethod
+    def hash(*exprs):
+        return ColumnExpr("Murmur3Hash", tuple(_wrap(e) for e in exprs))
 
     @staticmethod
     def year(e):

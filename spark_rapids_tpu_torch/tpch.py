@@ -5,8 +5,11 @@ filters over o_comment, outer joins of orders and customers, two
 queries of date arithmetic and casts over lineitem (DATE_QUERIES: a
 monthly shipping-delay report, and q6 over the ship date carried as
 text), two of text casts (TEXT_QUERIES: q1 over a lineitem whose numbers
-arrive as text, and a round trip of keys and flags through text), and
-numpy oracles for them.
+arrive as text, and a round trip of keys and flags through text), four
+of math, bitwise and hash expressions (MATH_QUERIES: a per-supplier
+price dispersion, a log-scale price histogram, the shuffle's 200-way
+hash partitioning of the lines, and a 1-in-64 sample by hash), and
+numpy oracles for them (murmur3 among them, in numpy's uint32).
 
 The generator draws from the distributions of the JAX package's
 benchmarks/tpch/datagen.py, with numpy's own generator seeded by `seed`:
@@ -49,6 +52,7 @@ from typing import Dict, List
 
 import numpy as np
 
+from .plan import logical as _L
 from .plan.logical import SortOrder, col, functions as F, lit
 from .types import (DateType, DoubleType, LongType, Schema, StringType,
                     StructField)
@@ -1027,6 +1031,98 @@ TEXT_INPUTS = {"q1_text": "lineitem_text", "text_roundtrip": "lineitem"}
 
 
 # --------------------------------------------------------------------------
+# math, bitwise and hash expressions over lineitem.  Each takes `dsl`: the
+# module whose col, lit, functions, ColumnExpr and SortOrder build it
+# (this package's plan.logical by default; the JAX package's has the same
+# names, so the tests build the same trees there)
+# --------------------------------------------------------------------------
+
+def price_dispersion(li, dsl=_L):
+    """Per supplier: its lines, mean price, the sample standard deviation
+    of the price (the square root of a variance that is null for one
+    line) and their ratio rounded to 4 places (`cov`); the 100 suppliers
+    of the widest spread, by the unrounded ratio, then the key.  TPC-DS
+    q17's and q39's stdev / mean over TPC-H's lines."""
+    F, col, lit = dsl.functions, dsl.col, dsl.lit
+    price, n, total = col("l_extendedprice"), col("lines"), col("total")
+    mean = total / n
+    stdev = F.sqrt(F.when(n > 1, (col("squares") - total * mean)
+                          / (n - 1)))
+    return (li.group_by(col("l_suppkey"))
+            .agg(F.count(lit(1)).alias("lines"),
+                 F.sum(price).alias("total"),
+                 F.sum(price * price).alias("squares"))
+            .select(col("l_suppkey"), n, mean.alias("mean"),
+                    stdev.alias("stdev"),
+                    F.round(stdev / mean, 4).alias("cov"))
+            .order_by(dsl.SortOrder(col("stdev") / col("mean"),
+                                    ascending=False), "l_suppkey")
+            .limit(100))
+
+
+def price_decades(li, dsl=_L):
+    """A log-scale histogram of the line prices, ten bins a decade
+    (floor(log10(price) * 10)), each with its lines, the mean discount in
+    percent rounded to 2 places, and its lower edge 10^(bin / 10) rounded
+    to cents, in bin order (TPC-DS q54's floor segments)."""
+    F, col, lit = dsl.functions, dsl.col, dsl.lit
+    log10 = dsl.ColumnExpr("Log10", (col("l_extendedprice"),))
+    return (li.select(F.floor(log10 * 10).alias("bin"), col("l_discount"))
+            .group_by(col("bin"))
+            .agg(F.count(lit(1)).alias("lines"),
+                 F.round(F.avg(col("l_discount")) * 100, 2)
+                 .alias("discount_pct"))
+            .select(col("bin"),
+                    F.round(F.pow(10, col("bin") / 10), 2)
+                    .alias("lower_edge"),
+                    col("lines"), col("discount_pct"))
+            .order_by("bin"))
+
+
+HASH_PARTITIONS = 200  # Spark's spark.sql.shuffle.partitions default
+
+
+def hash_partitions(li, dsl=_L):
+    """The partition Spark's HashPartitioning gives each line in a
+    shuffle on l_orderkey, pmod(hash(l_orderkey), 200), with the lines
+    and quantity each partition receives, in partition order."""
+    F, col, lit = dsl.functions, dsl.col, dsl.lit
+    part = dsl.ColumnExpr("Pmod", (F.hash(col("l_orderkey")),
+                                   lit(HASH_PARTITIONS)))
+    return (li.group_by(part.alias("partition"))
+            .agg(F.count(lit(1)).alias("lines"),
+                 F.sum(col("l_quantity")).alias("quantity"))
+            .order_by("partition"))
+
+
+SAMPLE_COLUMNS = ("l_orderkey", "l_suppkey", "l_extendedprice", "l_shipdate",
+                  "l_shipmode")
+
+
+def hash_sample(li, dsl=_L):
+    """A deterministic 1-in-64 sample of the lines: those whose hash over
+    SAMPLE_COLUMNS (two longs, a double, a date and a string) has its low
+    6 bits clear, counted with their quantity per top 3 bits of the hash
+    (ShiftRightUnsigned by 29: 8 groups), in group order."""
+    F, col, lit = dsl.functions, dsl.col, dsl.lit
+    h = col("h")
+    return (li.select(F.hash(*[col(c) for c in SAMPLE_COLUMNS]).alias("h"),
+                      col("l_quantity"))
+            .filter(dsl.ColumnExpr("BitwiseAnd", (h, lit(63))) == 0)
+            .group_by(dsl.ColumnExpr("ShiftRightUnsigned", (h, lit(29)))
+                      .alias("group"))
+            .agg(F.count(lit(1)).alias("lines"),
+                 F.sum(col("l_quantity")).alias("quantity"))
+            .order_by("group"))
+
+
+MATH_QUERIES = {"price_dispersion": price_dispersion,
+                "price_decades": price_decades,
+                "hash_partitions": hash_partitions,
+                "hash_sample": hash_sample}
+
+
+# --------------------------------------------------------------------------
 # outer joins: 1992's orders and the BUILDING customers on o_custkey ==
 # c_custkey, counted as count(*), count(o_orderkey) and count(c_custkey)
 # --------------------------------------------------------------------------
@@ -1179,6 +1275,160 @@ def oracle_ship_delay(t: Dict[str, np.ndarray]) -> List[tuple]:
     return [(_date(month_day[i]), int(lines[i]), int(transit[i]),
              int(late[i]), int(over[i]), _date(monday[i]))
             for i in np.flatnonzero(lines)]
+
+
+def _half_up(x: np.ndarray, places: int) -> np.ndarray:
+    """Spark's round(x, places) of positive doubles, as the port's Round
+    computes it (HALF_UP in float64)."""
+    p = 10.0 ** places
+    return np.trunc(x * p + 0.5) / p
+
+
+def oracle_price_dispersion(t: Dict[str, np.ndarray]) -> List[tuple]:
+    """Every supplier's row in the query's order (match_math_query takes
+    the first 100, ties trading places)."""
+    supp, price = t["l_suppkey"], t["l_extendedprice"]
+    n = np.bincount(supp)
+    keys = np.flatnonzero(n)
+    n = n[keys]
+    total = np.bincount(supp, weights=price)[keys]
+    squares = np.bincount(supp, weights=price * price)[keys]
+    mean = total / n
+    with np.errstate(invalid="ignore", divide="ignore"):
+        var = np.where(n > 1, (squares - total * mean) / (n - 1), np.nan)
+    stdev = np.sqrt(var)
+    ratio = stdev / mean
+    cov = _half_up(ratio, 4)
+    order = np.lexsort((keys, -np.where(np.isnan(ratio), -np.inf, ratio)))
+    return [(int(keys[i]), int(n[i]), float(mean[i]),
+             None if np.isnan(stdev[i]) else float(stdev[i]),
+             None if np.isnan(cov[i]) else float(cov[i])) for i in order]
+
+
+def oracle_price_decades(t: Dict[str, np.ndarray]) -> List[tuple]:
+    bins = np.floor(np.log10(t["l_extendedprice"]) * 10).astype(np.int64)
+    first = int(bins.min())
+    lines = np.bincount(bins - first)
+    disc = np.bincount(bins - first, weights=t["l_discount"])
+    return [(int(b + first),
+             float(_half_up(np.array(10 ** ((b + first) / 10)), 2)),
+             int(lines[b]), float(_half_up(disc[b] / lines[b] * 100, 2)))
+            for b in np.flatnonzero(lines)]
+
+
+_U32 = np.uint32
+
+
+def _rotl32_np(x: np.ndarray, r: int) -> np.ndarray:
+    """x rotated left by r bits, in place."""
+    low = x >> _U32(32 - r)
+    x <<= _U32(r)
+    x |= low
+    return x
+
+
+def _mix_h_np(h: np.ndarray, k: np.ndarray) -> np.ndarray:
+    """Murmur3's body step: block k mixed into hash h (new arrays; in
+    place on its own temporaries, which the SF10 oracle needs)."""
+    k = _rotl32_np(k * _U32(0xcc9e2d51), 15)
+    k *= _U32(0x1b873593)
+    k ^= h
+    k = _rotl32_np(k, 13)
+    k *= _U32(5)
+    k += _U32(0xe6546b64)
+    return k
+
+
+def murmur3_np(values: np.ndarray, seed) -> np.ndarray:
+    """Spark's Murmur3Hash of one column of non-null values seeded by
+    `seed` (an int or the uint32 hash so far), in numpy uint32, written
+    from Spark's hashInt, hashLong and hashUnsafeBytes apart from the
+    port's torch code: int32 and dates as one block, int64 as its low
+    and high words, float64 by its bits (-0.0 as 0.0, every NaN as
+    one), byte strings by 4-byte little-endian blocks and then each
+    remaining byte alone, sign-extended.  Returns uint32."""
+    n = len(values)
+    h = np.full(n, seed, _U32) if np.isscalar(seed) else seed.astype(_U32)
+    if values.dtype == np.float64:
+        v = np.where(values == 0, 0.0, values)
+        bits = v.view(np.int64)
+        values = np.where(np.isnan(v), np.int64(0x7FF8000000000000), bits)
+    if values.dtype.kind == "S":
+        width = values.dtype.itemsize
+        lens = np.char.str_len(values)  # numpy drops trailing NUL bytes
+        blocks = lens // 4
+        # a word past the last, so each row's tail word exists
+        padded = np.zeros((n, width // 4 * 4 + 4), np.uint8)
+        padded[:, :width] = np.frombuffer(values.tobytes(),
+                                          np.uint8).reshape(n, width)
+        words = padded.view("<u4")
+        for j in range(width // 4):
+            h = np.where(j < blocks, _mix_h_np(h, words[:, j]), h)
+        tail = np.take_along_axis(words, blocks[:, None], 1)[:, 0]
+        for t in range(3):
+            byte = ((tail >> _U32(8 * t)) & _U32(0xFF)).astype(np.int32)
+            k = ((byte ^ 0x80) - 0x80).view(_U32)  # sign-extended
+            h = np.where(blocks * 4 + t < lens, _mix_h_np(h, k), h)
+        length = lens.astype(_U32)
+    elif values.dtype.itemsize == 8:
+        u = values.view(np.uint64)
+        h = _mix_h_np(h, (u & np.uint64(0xFFFFFFFF)).astype(_U32))
+        h = _mix_h_np(h, (u >> np.uint64(32)).astype(_U32))
+        length = _U32(8)
+    else:
+        h = _mix_h_np(h, values.astype(np.int32).view(_U32))
+        length = _U32(4)
+    h = h ^ length
+    h = h ^ (h >> _U32(16))
+    h = h * _U32(0x85ebca6b)
+    h = h ^ (h >> _U32(13))
+    h = h * _U32(0xc2b2ae35)
+    return h ^ (h >> _U32(16))
+
+
+def oracle_hash_partitions(t: Dict[str, np.ndarray]) -> List[tuple]:
+    h = murmur3_np(t["l_orderkey"], 42).view(np.int32).astype(np.int64)
+    part = h % HASH_PARTITIONS  # numpy's % is a floor modulo: Spark's pmod
+    lines = np.bincount(part, minlength=HASH_PARTITIONS)
+    qty = np.bincount(part, weights=t["l_quantity"],
+                      minlength=HASH_PARTITIONS)
+    return [(int(p), int(lines[p]), float(qty[p]))
+            for p in np.flatnonzero(lines)]
+
+
+def oracle_hash_sample(t: Dict[str, np.ndarray]) -> List[tuple]:
+    h = 42
+    for c in SAMPLE_COLUMNS:
+        h = murmur3_np(t[c], h)
+    keep = (h & _U32(63)) == 0
+    group = (h[keep] >> _U32(29)).astype(np.int64)
+    lines = np.bincount(group, minlength=8)
+    qty = np.bincount(group, weights=t["l_quantity"][keep], minlength=8)
+    return [(int(g), int(lines[g]), float(qty[g]))
+            for g in np.flatnonzero(lines)]
+
+
+def match_math_query(name: str, want: List[tuple],
+                     got: List[tuple]) -> bool:
+    """`got` against the oracle's rows: price_dispersion's first 100 by
+    the ratio stdev / mean (rows that tie within rel 1e-9 may trade
+    places) with `cov` within 1e-4 of the oracle's (a sum taken in
+    another order can move a half-way value), price_decades' rounded
+    mean discount within 0.01 likewise, the rest as rows_match."""
+    if name == "price_dispersion":
+        def ratio(rows):
+            return [r[:4] + (-math.inf if r[3] is None else r[3] / r[2],)
+                    for r in rows]
+        cov = {r[0]: r[4] for r in want}
+        return (top_rows_match(ratio(want), ratio(got), 100, 4)
+                and all((r[4] is None) == (cov[r[0]] is None)
+                        and (r[4] is None or abs(r[4] - cov[r[0]]) <= 1e-4)
+                        for r in got))
+    if name == "price_decades":
+        return (rows_match([r[:3] for r in want], [r[:3] for r in got])
+                and all(abs(w[3] - g[3]) <= 0.01 + 1e-9
+                        for w, g in zip(want, got)))
+    return rows_match(want, got)
 
 
 def oracle_q18_inner(t: Dict[str, np.ndarray],
@@ -1675,7 +1925,11 @@ ORACLES = {"q1": oracle_q1, "q6": oracle_q6, "q18_inner": oracle_q18_inner,
            "q16": oracle_q16, "q20": oracle_q20,
            "ship_delay": oracle_ship_delay, "q6_text": oracle_q6,
            "q1_text": oracle_q1_text,
-           "text_roundtrip": oracle_text_roundtrip}
+           "text_roundtrip": oracle_text_roundtrip,
+           "price_dispersion": oracle_price_dispersion,
+           "price_decades": oracle_price_decades,
+           "hash_partitions": oracle_hash_partitions,
+           "hash_sample": oracle_hash_sample}
 # how many of the oracle's rows each top-N query keeps, and the column it
 # orders by first
 TOP_N = {"q3": (10, 3), "q10": (20, 7), "q18": (100, 4), "q2": (100, 0)}

@@ -16,6 +16,8 @@ import test_torch_arithmetic as XA
 import test_torch_cast_text as XT
 import test_torch_datetime as XD
 import test_torch_expressions as X
+import test_torch_hash as XH
+import test_torch_math as XM
 import test_torch_strings as XS
 from spark_rapids_tpu_torch.ops import kernels as K
 
@@ -795,3 +797,44 @@ def test_text_queries_on_card_match_cpu(dev):
                               .from_numpy(table, schema)).collect())
         assert rows[0] and tpch.rows_match(rows[0], rows[1]), name
         assert tpch.rows_match(tpch.ORACLES[name](t), rows[1]), name
+
+
+@pytest.mark.parametrize("case", list(XM.CASES))
+def test_math_and_bitwise_on_card_match_cpu(dev, case):
+    """Each case of tests/test_torch_math.py (integer extremes, shift
+    counts of -70..70 and beyond, special doubles against each other,
+    subnormals, x.5 boundaries, nulls) on the card and on the CPU: the
+    same type and null mask; bitwise, shifts, Floor, Ceil, Rint, Round,
+    BRound, Signum, Sqrt, ToDegrees and ToRadians bit for bit (any NaN
+    equal to any NaN), the rest within XM.REL."""
+    data = XM.table()
+    want = XM.port_eval(data, case, "cpu")
+    got = XM.port_eval(data, case, dev)
+    assert got[0] == want[0]
+    bad = XM.parted(case, got, want, XM.CASES[case][0] in XM.EXACT)
+    assert not bad.any(), (case, np.flatnonzero(bad)[:5])
+
+
+@pytest.mark.parametrize("case", list(XH.CASES))
+def test_murmur3_on_card_matches_cpu(dev, case):
+    """Each murmur3 case of tests/test_torch_hash.py (every type, NaN
+    payloads, +-0.0, strings of 0-64 bytes with bytes >= 0x80, nulls,
+    folds) on the card and on the CPU: the same int32 bits."""
+    data = XH.table()
+    assert np.array_equal(XH.port_hash(data, case, dev),
+                          XH.port_hash(data, case, "cpu"))
+
+
+def test_math_queries_on_card_match_cpu(dev):
+    """tpch.MATH_QUERIES at SF0.01 on the card and on the CPU, over
+    several batches: the same rows, each matching its numpy oracle."""
+    from spark_rapids_tpu_torch import TpuSession, tpch
+    t = tpch.generate_lineitem(0.01)
+    conf = {"spark.rapids.sql.variableFloatAgg.enabled": "true",
+            "spark.rapids.sql.reader.batchSizeRows": "20000"}
+    for name, query in tpch.MATH_QUERIES.items():
+        rows = [query(TpuSession(conf, device=d).from_numpy(
+            t, tpch.LINEITEM)).collect() for d in ("cpu", dev)]
+        assert rows[0] and tpch.match_math_query(name, rows[0], rows[1]), \
+            name
+        assert tpch.match_math_query(name, tpch.ORACLES[name](t), rows[1])
