@@ -135,7 +135,25 @@ Phases, each printing a line:
      `hash_sample` (a 1-in-64 sample by a five-column hash), each held to
      its numpy oracle (`tpch.match_math_query`) with the numbers of a
      phase 3 `query` line (`math_query` lines); every shape they launch
-     joins the shapes checked against the plain versions.
+     joins the shapes checked against the plain versions;
+ 10. First, Last, distinct aggregates and string Min/Max: (a) each case
+     of `agg_cases` (First and Last of int, long, date, double and text;
+     count, sum and average distinct; string min and max; grouped by
+     ~1000 and ~2^18 int keys, and global) through a TpuSession on the
+     card and one on the CPU over `agg_table`'s seeded 2^20 rows in
+     batches of 2^18 (10% nulls, NaN and +-0.0, text of 0-64 bytes with
+     shared prefixes), rows equal (exact, float sums within
+     SUM_REL_TOL), each with its time on the card (`agg_fn` lines);
+     (b) tpch.AGG_QUERIES over the resident tables: `q16_distinct` and
+     `q21_distinct` (q16 and q21 with count(distinct)) held to the rows
+     phase 3 gave q16 and q21, `priority_migration` (each customer's
+     first and last order priority over the orders sorted by date),
+     `segment_bounds` (string min/max per market segment) and
+     `urgent_summary` (a global distinct count, string bounds, first and
+     last) to their numpy oracles, with the numbers of a phase 3 `query`
+     line (`agg_query` lines); q21_distinct must launch K1, K2 and K3,
+     and every shape phase 10 launches joins the shapes checked against
+     the plain versions.
 A `phase_seconds` line gives each phase's wall seconds.  The
 second-last line is the card as nvidia-smi names it; the last is
 {"ok": true, "device": {...}}.  Any failure raises: nothing is caught,
@@ -143,6 +161,7 @@ and the script prints no result line without a CUDA device.
 """
 import itertools
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -151,7 +170,8 @@ import time
 import numpy as np
 import torch
 
-from spark_rapids_tpu_torch import TpuSession, tpch
+from spark_rapids_tpu_torch import TpuSession, col, tpch
+from spark_rapids_tpu_torch import functions as F
 from spark_rapids_tpu_torch.config import CAST_STRING_TO_FLOAT
 from spark_rapids_tpu_torch.columnar import (Column, ColumnarBatch,
                                              bucket_rows, bucket_strlen)
@@ -202,6 +222,8 @@ DATE_PART_ROWS = 1 << 24
 DATE_ARITH_ROWS = 1 << 24
 TEXT_CAST_ROWS = 1 << 22
 MATH_ROWS = 1 << 22
+AGG_ROWS = 1 << 20         # phase 10 (a): rows, in batches of AGG_BATCH_ROWS
+AGG_BATCH_ROWS = 1 << 18
 # text the JAX package's parses read apart from Spark: digit sums that
 # wrap in int64, a mantissa of more than 19 digits, 10^23, scales past
 # 10^308
@@ -433,7 +455,8 @@ def _matches(name: str, want: list, got: list) -> bool:
 def run_queries(tables: dict, device: str = "cuda") -> tuple:
     """The queries on the card against the numpy oracles; returns the
     kernel launch counts of the queries' first runs, the shapes each
-    kernel was launched at there, and the session's DataFrames."""
+    kernel was launched at there, the session's DataFrames, and each
+    query's rows."""
     t0 = time.perf_counter()
     s = TpuSession(dict(CONF), device=device)
     dfs = {n: s.from_numpy(t, tpch.SCHEMAS[n]) for n, t in tables.items()}
@@ -506,7 +529,7 @@ def run_queries(tables: dict, device: str = "cuda") -> tuple:
     if missing:
         raise AssertionError(f"kernels never launched by the queries: "
                              f"{missing}")
-    return launches, shapes, dfs
+    return launches, shapes, dfs, {name: f[1] for name, f in first.items()}
 
 
 def partsupp_sparsity(tables: dict) -> dict:
@@ -1146,6 +1169,169 @@ def run_math_queries(li_df, lineitem: dict) -> list:
     return shapes
 
 
+def agg_table(n: int, seed: int = 42) -> tuple:
+    """Phase 10 (a)'s columns (numpy, nulls masked) and schema: int keys
+    of ~1000 (`k1k`) and ~2^18 (`k256k`) groups, never null; int, long
+    and date values; doubles with NaN and +-0.0; text of 0-64 bytes over
+    a, b and c, a third of it after a shared prefix of 8, 24 or 40 a's.
+    About 10% of every value is null."""
+    rng = np.random.default_rng([seed, 10])
+    text = rng.choice(np.frombuffer(b"abc", np.uint8), (n, 64))
+    prefix = rng.choice([0, 0, 0, 8, 24, 40], n)
+    text[np.arange(64)[None, :] < prefix[:, None]] = ord("a")
+    length = rng.integers(0, 65, n)
+    text[np.arange(64)[None, :] >= length[:, None]] = 0
+    cols = {"k1k": rng.integers(0, 1000, n, dtype=np.int32),
+            "k256k": rng.integers(0, 1 << 18, n, dtype=np.int32),
+            "i": rng.integers(-(1 << 31), (1 << 31) - 1, n, dtype=np.int32),
+            "l": rng.integers(-(1 << 62), 1 << 62, n),
+            "d": rng.integers(-200_000, 200_000, n, dtype=np.int32),
+            "x": rng.choice([np.nan, 0.0, -0.0, 1.5, -2.25], n)
+            * np.where(rng.random(n) < 0.5, 1.0, rng.random(n) * 100),
+            "s": tpch._as_bytes(text)}
+    for c in ("i", "l", "d", "x", "s"):
+        cols[c] = np.ma.masked_array(cols[c], mask=rng.random(n) < 0.1)
+    types = {"k1k": IntegerType, "k256k": IntegerType, "i": IntegerType,
+             "l": LongType, "d": DateType, "x": DoubleType, "s": StringType}
+    return cols, Schema([StructField(c, types[c]) for c in cols])
+
+
+def agg_cases() -> list:
+    """(name, query over phase 10 (a)'s DataFrame, the output columns held
+    within SUM_REL_TOL): First and Last of every value type, count, sum
+    and average distinct, and string Min/Max, grouped by either key and
+    global."""
+    keys = {"k1k": "k1k", "k256k": "k256k", "global": None}
+
+    def by(key, aggs):
+        def q(df):
+            if key is None:
+                return df.agg(*aggs())
+            return df.group_by(col(key)).agg(*aggs()).order_by(key)
+        return q
+
+    def first_last():
+        return [f(col(c)).alias(f"{f.__name__}_{c}")
+                for c in ("i", "l", "d", "x", "s")
+                for f in (F.first, F.last)]
+
+    def distinct(v):
+        def aggs():
+            out = [F.count_distinct(col(v)).alias("count_distinct"),
+                   F.count(col(v)).alias("count")]
+            if v in ("i", "l", "x"):
+                out += [F._agg("Sum", col(v), True).alias("sum_distinct"),
+                        F._agg("Average", col(v), True)
+                        .alias("avg_distinct")]
+            return out
+        return aggs
+
+    def bounds():
+        return [F.min(col("s")).alias("min_s"),
+                F.max(col("s")).alias("max_s"),
+                F.count(col("s")).alias("count_s")]
+    cases = [(f"first_last/{k}", by(key, first_last), ())
+             for k, key in keys.items()]
+    cases += [(f"distinct_{v}/k1k", by("k1k", distinct(v)),
+               ("sum_distinct", "avg_distinct") if v == "x"
+               else ("avg_distinct",)) for v in ("i", "l", "x", "d", "s")]
+    cases += [("distinct_i/k256k", by("k256k", distinct("i")),
+               ("avg_distinct",)),
+              ("distinct_i/global", by(None, distinct("i")),
+               ("avg_distinct",)),
+              ("distinct_x/global", by(None, distinct("x")),
+               ("sum_distinct", "avg_distinct"))]
+    cases += [(f"string_bounds/{k}", by(key, bounds), ())
+              for k, key in keys.items()]
+    return cases
+
+
+def _rows_agree(want: list, got: list, names: list, approx) -> bool:
+    """Rows equal in order: exact (any NaN equal to any NaN), the columns
+    named in `approx` within SUM_REL_TOL of float64."""
+    if len(want) != len(got):
+        return False
+    tol = SUM_REL_TOL[torch.float64]
+    for w, g in zip(want, got):
+        for name, a, b in zip(names, w, g):
+            if isinstance(a, float) and isinstance(b, float):
+                if math.isnan(a) and math.isnan(b):
+                    continue
+                if name in approx and math.isclose(a, b, rel_tol=tol,
+                                                   abs_tol=tol):
+                    continue
+            if a != b:
+                return False
+    return True
+
+
+def check_agg_functions(device: str = "cuda") -> list:
+    """Phase 10 (a): each of `agg_cases` through a TpuSession on the card
+    and one on the CPU over agg_table(AGG_ROWS), read in batches of
+    AGG_BATCH_ROWS (the merge runs; a distinct aggregate's input is
+    coalesced into one batch); one `agg_fn` line each, with its time on
+    the card.  Returns the (kernel, shape) pairs the card launched."""
+    cols, schema = agg_table(AGG_ROWS)
+    conf = dict(CONF, **{"spark.rapids.sql.reader.batchSizeRows":
+                         str(AGG_BATCH_ROWS)})
+    card = TpuSession(dict(conf), device=device).from_numpy(cols, schema)
+    cpu = TpuSession(dict(conf), device="cpu").from_numpy(cols, schema)
+    shapes = []
+    for name, q, approx in agg_cases():
+        K.reset_launches()
+        got = q(card).collect()
+        launches = K.launch_counts()
+        shapes += launched_shapes()
+        paths = _update_paths(card.session.last_plan)
+        want = q(cpu).collect()
+        ok = _rows_agree(want, got, q(cpu).schema.names, approx)
+        print("agg_fn " + json.dumps({
+            "case": name, "rows": len(got), "matches_cpu": ok,
+            # to numpy columns: Python rows of 2^18 groups take seconds
+            "ms": time_ms(lambda: q(card).to_pydict(), 3),
+            "launches": launches, "agg_update_paths": paths}), flush=True)
+        if not ok or not got:
+            raise AssertionError(f"{name} on the card differs from the CPU "
+                                 f"or is empty: {got[:2]} vs {want[:2]}")
+    return shapes
+
+
+def run_agg_queries(dfs: dict, tables: dict, rows: dict) -> list:
+    """Phase 10 (b): each of tpch.AGG_QUERIES over the resident tables
+    (`measure`), with the numbers of a phase 3 `query` line and the
+    update paths: q16_distinct and q21_distinct held to the rows phase 3
+    gave q16 and q21 (checked there against their oracles), the others
+    to their numpy oracles; q21_distinct must launch K1, K2 and K3.
+    Returns the (kernel, shape) pairs they launched."""
+    shapes = []
+    for name, query in tpch.AGG_QUERIES.items():
+        resident = torch.cuda.memory_allocated()
+        got, df, numbers, launched = measure(lambda query=query:
+                                             query(dfs))
+        shapes += launched
+        base = name.split("_")[0] if name.endswith("_distinct") else None
+        t0 = time.perf_counter()
+        want = rows[base] if base else tpch.ORACLES[name](tables)
+        oracle_s = time.perf_counter() - t0
+        match = tpch.match_agg_query(name, want, got)
+        plan = df.session.last_plan
+        print("agg_query " + json.dumps({
+            "query": name, "rows": len(got), "matches_oracle": match,
+            "held_to": base or "oracle", "oracle_s": oracle_s,
+            "joins": join_nodes(plan),
+            "agg_update_paths": _update_paths(plan),
+            "resident_device_bytes": resident, **numbers,
+            "result": [[str(v) for v in r] for r in got[:4]]}), flush=True)
+        if not match or not got:
+            raise AssertionError(f"{name} disagrees with "
+                                 f"{base or 'its numpy oracle'} or is "
+                                 f"empty: {got[:3]} vs {want[:3]}")
+        if name == "q21_distinct" and not all(numbers["launches"].values()):
+            raise AssertionError(f"q21_distinct did not launch every "
+                                 f"kernel: {numbers['launches']}")
+    return shapes
+
+
 def shape_launches(before: list = ()) -> list:
     """[kernel, shape, launches] of every kernel shape launched since the
     last reset, less the launches in `before` (an earlier reading)."""
@@ -1312,7 +1498,7 @@ def main() -> int:
     check_kernels(gen, dev, checked, report)
     torch.cuda.empty_cache()
     ends.append(("kernels", time.perf_counter()))
-    launches, shapes, dfs = run_queries(tables)
+    launches, shapes, dfs, rows = run_queries(tables)
     ends.append(("queries", time.perf_counter()))
     shapes += run_string_filters(dfs["orders"], tables["orders"])
     shapes += run_outer_joins(dfs, tables)
@@ -1331,14 +1517,20 @@ def main() -> int:
     ends.append(("text casts", time.perf_counter()))
     check_math(dev)
     shapes += run_math_queries(dfs["lineitem"], tables["lineitem"])
-    del dfs
     torch.cuda.empty_cache()
     ends.append(("math, bitwise and hash", time.perf_counter()))
+    shapes += check_agg_functions()
+    shapes += run_agg_queries(dfs, tables, rows)
+    del dfs
+    torch.cuda.empty_cache()
+    ends.append(("first, last, distinct and string bounds",
+                 time.perf_counter()))
     shapes = list(dict.fromkeys(shapes))
     rest = [ks for ks in shapes if ks not in checked]
     print(f"kernels: {len(shapes) - len(rest)} of the {len(shapes)} shapes "
-          f"launched by the queries, filters, outer joins, date, text and "
-          f"math queries were checked in phase 2; checking the other "
+          f"launched by the queries, filters, outer joins, date, text, "
+          f"math and aggregate queries were checked in phase 2; checking "
+          f"the other "
           f"{len(rest)}", flush=True)
     check_kernels(gen, dev, rest, report)
     ends.append(("launched shapes", time.perf_counter()))

@@ -1,6 +1,6 @@
-"""Basic operators: the in-memory scan, project, filter, limit, and the
-device-to-host edge (port of the device half of
-spark_rapids_tpu/exec/basic.py).
+"""Basic operators: the in-memory scan, project, filter, limit, the
+coalesce of a stream into one batch, and the device-to-host edge (port
+of the device half of spark_rapids_tpu/exec/basic.py).
 
 Project and filter move no data: filter ANDs into the batch's selection
 mask.  Whole-stage fusion does not exist in the port yet; each operator
@@ -13,7 +13,7 @@ from typing import Dict, Iterator, List, Sequence, Union
 import numpy as np
 import torch
 
-from ..columnar import Column, ColumnarBatch, bucket_rows
+from ..columnar import Column, ColumnarBatch, bucket_rows, concat_batches
 from ..config import MAX_READER_BATCH_SIZE_ROWS, SORT_PACKED_ENABLED
 from ..ops import expressions as E
 from ..types import Schema, StructField
@@ -135,6 +135,30 @@ class TpuLocalLimitExec(ExecNode):
 
 class TpuGlobalLimitExec(TpuLocalLimitExec):
     """The same cut on the single merged stream."""
+
+
+class TpuCoalesceBatchesExec(ExecNode):
+    """Every batch of the child as one batch, its live rows in order (the
+    "single" goal of the JAX package's exec; its "target" goal is not
+    ported).  The planner puts one under an aggregate that dedups a
+    distinct child, whose update must see every row at once."""
+
+    goal = "single"
+
+    @property
+    def schema(self):
+        return self.children[0].schema
+
+    def execute(self, ctx):
+        packed = ctx.conf.get(SORT_PACKED_ENABLED)
+        batches = list(self.children[0].execute(ctx))
+        if not batches:
+            return
+        # held in a list, so that this frame drops it once it is yielded
+        out = [batches[0].compact(packed) if len(batches) == 1
+               else concat_batches(batches, packed)]
+        del batches
+        yield out.pop()
 
 
 class DeviceToHostExec(ExecNode):

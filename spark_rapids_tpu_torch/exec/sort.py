@@ -15,7 +15,7 @@ Descending columns complement their components within the width.
 """
 from __future__ import annotations
 
-from typing import List, Sequence
+from typing import Iterator, List, Sequence
 
 import torch
 
@@ -52,15 +52,16 @@ def _f32_key(data: torch.Tensor) -> torch.Tensor:
     return torch.where(bits >= 0, bits, ~bits + _I32_MIN).to(torch.int64)
 
 
-def _string_words(c: Column) -> List[torch.Tensor]:
-    """Big-endian 64-bit words (int64-stored unsigned) of the padded bytes;
-    UTF-8 byte order is code-point order."""
-    cap, width = c.data.shape
+def _string_words(c: Column) -> Iterator[torch.Tensor]:
+    """Big-endian 64-bit words (int64-stored unsigned) of the padded bytes,
+    made one at a time (widening the whole byte matrix to int64 at once
+    takes 8x its bytes); UTF-8 byte order is code-point order."""
+    width = c.data.shape[1]
     assert width % 8 == 0, width  # bucket_strlen yields powers of two >= 8
-    w = c.data.reshape(cap, width // 8, 8).to(torch.int64)
     shifts = torch.arange(56, -8, -8, device=c.device)
-    words = (w << shifts).sum(dim=2)  # disjoint bits: the sum is an or
-    return [words[:, j] for j in range(width // 8)]
+    for j in range(0, width, 8):
+        # disjoint bits: the sum is an or
+        yield (c.data[:, j:j + 8].to(torch.int64) << shifts).sum(dim=1)
 
 
 def _biased(vals: torch.Tensor, width: int) -> torch.Tensor:

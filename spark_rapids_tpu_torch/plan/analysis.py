@@ -87,11 +87,24 @@ def resolve(ce, schema: Schema) -> E.Expression:
                                 "not supported")
         return Cast(child, to)
     if op in AGG_FUNCS:
-        child_ce = ce.args[0]
+        if op == "Percentile":
+            child_ce, distinct, pct = ce.args
+            if distinct:
+                raise AnalysisError("percentile(DISTINCT) is not supported")
+            if not (0.0 <= float(pct) <= 1.0):
+                raise AnalysisError(f"percentile p={pct} outside [0, 1]")
+            child = resolve(child_ce, schema)
+            if not child.dtype.is_numeric:
+                raise AnalysisError(f"percentile over {child.dtype.name}")
+            return AggregateExpression(op, child, False,
+                                       output_name=ce.output_name,
+                                       param=float(pct))
+        child_ce, distinct = ce.args
         child = None
         if not (child_ce.op == "lit" and child_ce.args[0] in (1, "*")):
             child = resolve(child_ce, schema)
-        return AggregateExpression(op, child, output_name=ce.output_name)
+        return AggregateExpression(op, child, distinct,
+                                   output_name=ce.output_name)
     if op == "In":
         return E.In(resolve(ce.args[0], schema), list(ce.args[1]))
     if op == "CaseWhen":

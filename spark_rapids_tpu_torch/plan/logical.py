@@ -3,7 +3,9 @@ spark_rapids_tpu/plan/logical.py): `col`, `lit`, the arithmetic
 operators (`+ - * / %` and unary `-`; IntegralDivide and Pmod have no
 operator and are built as `ColumnExpr("Pmod", (a, b))`), `abs`, the
 comparison and boolean operators, `between`, `isin`, `is_null` and
-`is_not_null`, the aggregate functions sum, avg, count, min and max,
+`is_not_null`, the aggregate functions sum, avg, count, min, max,
+`count_distinct`, `first`, `last` and `percentile` (the others'
+distinct forms through `functions._agg(op, e, distinct=True)`),
 `when`/`otherwise`, `coalesce`, `isnan`, `least` and `greatest`,
 `substr`, `startswith`, `endswith`, `contains` and `like`, the date
 parts `year`, `month`, `dayofmonth`, `hour`, `minute` and `second`,
@@ -192,24 +194,49 @@ class functions:
     lit = staticmethod(lit)
 
     @staticmethod
+    def _agg(op, e, distinct=False):
+        """An aggregate call: its args are (child, distinct)."""
+        return ColumnExpr(op, (_wrap(e), distinct))
+
+    @staticmethod
     def sum(e):
-        return ColumnExpr("Sum", (_wrap(e),))
+        return functions._agg("Sum", e)
 
     @staticmethod
     def avg(e):
-        return ColumnExpr("Average", (_wrap(e),))
+        return functions._agg("Average", e)
 
     @staticmethod
     def min(e):
-        return ColumnExpr("Min", (_wrap(e),))
+        return functions._agg("Min", e)
 
     @staticmethod
     def max(e):
-        return ColumnExpr("Max", (_wrap(e),))
+        return functions._agg("Max", e)
 
     @staticmethod
     def count(e):
-        return ColumnExpr("Count", (_wrap(e),))
+        return functions._agg("Count", e)
+
+    @staticmethod
+    def count_distinct(e):
+        return functions._agg("Count", e, distinct=True)
+
+    @staticmethod
+    def first(e):
+        """The first row's value, nulls included (Spark's ignoreNulls
+        false)."""
+        return functions._agg("First", e)
+
+    @staticmethod
+    def last(e):
+        return functions._agg("Last", e)
+
+    @staticmethod
+    def percentile(e, p: float):
+        """Spark's exact `percentile`; its args are (child, False, p).
+        The planner refuses it (plan/physical.py)."""
+        return ColumnExpr("Percentile", (_wrap(e), False, float(p)))
 
     @staticmethod
     def when(cond, value):

@@ -8,7 +8,10 @@ yet: every node becomes its device exec, and a node, expression or
 aggregate outside the slice raises NotImplementedError here, at planning
 time, as does a cast the JAX package's tagging sends to its CPU executor
 (string -> timestamp without castStringToTimestamp, string -> float or
-double without castStringToFloat).  The session prunes
+double without castStringToFloat), and an aggregate list it sends there
+(Percentile, distinct First or Last, two distinct children).  An
+aggregate that dedups a distinct child reads its input through a
+TpuCoalesceBatchesExec: its update must see every row in one batch.  The session prunes
 the scans' columns first (plan/pushdown.py).
 
 A join is planned by the JAX package's rules (its plan/physical.py), so
@@ -43,7 +46,8 @@ from ..config import (AUTO_BROADCAST_JOIN_THRESHOLD, CAST_STRING_TO_FLOAT,
                       TpuConf)
 from ..exec.aggregate import TpuHashAggregateExec
 from ..exec.base import ExecNode
-from ..exec.basic import (TpuFilterExec, TpuGlobalLimitExec, TpuProjectExec,
+from ..exec.basic import (TpuCoalesceBatchesExec, TpuFilterExec,
+                          TpuGlobalLimitExec, TpuProjectExec,
                           TpuScanMemoryExec)
 from ..exec.broadcast import TpuBroadcastExchangeExec, TpuBroadcastHashJoinExec
 from ..exec.join import TpuHashJoinExec, TpuReorderColumnsExec, joined_schema
@@ -119,8 +123,15 @@ def _aggregate(plan: L.LogicalAggregate, child: ExecNode,
         if not isinstance(a, AggregateExpression):
             raise NotImplementedError(
                 f"{ce!r} in an agg list is not an aggregate function")
-        if a.func in ("Min", "Max") and a.child.dtype.is_string:
-            raise NotImplementedError("min/max over strings is not ported")
+        # the JAX package runs the next two on its CPU executor (tagging,
+        # overrides); the port has none, so it raises
+        if a.func == "Percentile":
+            raise NotImplementedError(
+                "percentile is not supported on the device: the JAX "
+                "package runs it on its CPU executor, which is not ported")
+        if a.distinct and a.func in ("First", "Last"):
+            raise NotImplementedError(
+                f"distinct {a.func} is not supported on the device")
         if a.func in ("Sum", "Average") and a.child.dtype.is_floating \
                 and not conf.get(VARIABLE_FLOAT_AGG):
             # the JAX package runs these on its CPU executor; the port has
@@ -129,10 +140,20 @@ def _aggregate(plan: L.LogicalAggregate, child: ExecNode,
                 "float aggregation reduces in a different order than Spark; "
                 f"set {VARIABLE_FLOAT_AGG.key}=true to run it")
         aggs.append(a)
+    if len({repr(a.child) for a in aggs if a.distinct}) > 1:
+        # one sorted pass dedups one distinct child
+        raise NotImplementedError(
+            "multiple distinct aggregate children are not supported on the "
+            "device")
     grouping = [_resolved(ce, schema, conf) for ce in plan.grouping]
-    return TpuHashAggregateExec(grouping,
-                                [ce.output_name for ce in plan.grouping],
-                                aggs, child)
+    agg = TpuHashAggregateExec(grouping,
+                               [ce.output_name for ce in plan.grouping],
+                               aggs, child)
+    if agg.child_coalesce_goal == "single":
+        # the JAX package's insert_coalesce (plan/transitions.py), for the
+        # one goal the port has
+        agg.children = [TpuCoalesceBatchesExec(child)]
+    return agg
 
 
 def convert(plan: L.LogicalPlan, conf: TpuConf) -> ExecNode:

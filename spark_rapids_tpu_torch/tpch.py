@@ -8,8 +8,12 @@ text), two of text casts (TEXT_QUERIES: q1 over a lineitem whose numbers
 arrive as text, and a round trip of keys and flags through text), four
 of math, bitwise and hash expressions (MATH_QUERIES: a per-supplier
 price dispersion, a log-scale price histogram, the shuffle's 200-way
-hash partitioning of the lines, and a 1-in-64 sample by hash), and
-numpy oracles for them (murmur3 among them, in numpy's uint32).
+hash partitioning of the lines, and a 1-in-64 sample by hash), five of
+First, Last, distinct aggregates and string Min/Max (AGG_QUERIES: q16
+and q21 with count(distinct), each customer's first and last order
+priority, per-segment string bounds of the customers, and a global
+summary of the urgent orders), and numpy oracles for them (murmur3
+among them, in numpy's uint32).
 
 The generator draws from the distributions of the JAX package's
 benchmarks/tpch/datagen.py, with numpy's own generator seeded by `seed`:
@@ -699,30 +703,23 @@ def q19(t):
                        * (lit(1.0) - col("l_discount"))).alias("revenue")))
 
 
-def q21(t):
-    """TPC-H q21 as benchmarks/tpch/queries.py writes it: the SAUDI
-    ARABIA suppliers who were the one late supplier of a finished order
-    with several suppliers, counted per supplier, the 100 most first."""
-    nation = t["nation"].filter(col("n_name") == "SAUDI ARABIA")
+def _q21_lines(t, dsl=_L):
+    """q21's lines of finished orders, and those of them received
+    late."""
+    col = dsl.col
     f_orders = t["orders"].filter(col("o_orderstatus") == "F") \
         .select(col("o_orderkey"))
     li = t["lineitem"].join(f_orders,
                             on=col("l_orderkey") == col("o_orderkey"),
                             how="left_semi")
-    # per order: number of distinct suppliers, and of distinct late ones
-    supp_per_order = (li.group_by(col("l_orderkey"), col("l_suppkey"))
-                      .agg(F.count(lit(1)).alias("_c"))
-                      .group_by(col("l_orderkey"))
-                      .agg(F.count(lit(1)).alias("nsupp"))
-                      .select(col("l_orderkey").alias("all_key"),
-                              col("nsupp")))
-    late = li.filter(col("l_receiptdate") > col("l_commitdate"))
-    late_per_order = (late.group_by(col("l_orderkey"), col("l_suppkey"))
-                      .agg(F.count(lit(1)).alias("_c"))
-                      .group_by(col("l_orderkey"))
-                      .agg(F.count(lit(1)).alias("nlate"))
-                      .select(col("l_orderkey").alias("late_key"),
-                              col("nlate")))
+    return li, li.filter(col("l_receiptdate") > col("l_commitdate"))
+
+
+def _q21_blamed(t, late, supp_per_order, late_per_order, dsl=_L):
+    """q21 from its late lines and the per-order counts of suppliers
+    (`all_key`, `nsupp`) and of late suppliers (`late_key`, `nlate`)."""
+    col, lit, F = dsl.col, dsl.lit, dsl.functions
+    nation = t["nation"].filter(col("n_name") == "SAUDI ARABIA")
     blamed = (late
               .join(supp_per_order, on=col("l_orderkey") == col("all_key"))
               .join(late_per_order, on=col("l_orderkey") == col("late_key"))
@@ -732,8 +729,30 @@ def q21(t):
             .join(nation, on=col("s_nationkey") == col("n_nationkey"))
             .group_by(col("s_name"))
             .agg(F.count(lit(1)).alias("numwait"))
-            .order_by(SortOrder(col("numwait"), ascending=False), "s_name")
+            .order_by(dsl.SortOrder(col("numwait"), ascending=False),
+                      "s_name")
             .limit(100))
+
+
+def q21(t):
+    """TPC-H q21 as benchmarks/tpch/queries.py writes it: the SAUDI
+    ARABIA suppliers who were the one late supplier of a finished order
+    with several suppliers, counted per supplier, the 100 most first."""
+    li, late = _q21_lines(t)
+    # per order: number of distinct suppliers, and of distinct late ones
+    supp_per_order = (li.group_by(col("l_orderkey"), col("l_suppkey"))
+                      .agg(F.count(lit(1)).alias("_c"))
+                      .group_by(col("l_orderkey"))
+                      .agg(F.count(lit(1)).alias("nsupp"))
+                      .select(col("l_orderkey").alias("all_key"),
+                              col("nsupp")))
+    late_per_order = (late.group_by(col("l_orderkey"), col("l_suppkey"))
+                      .agg(F.count(lit(1)).alias("_c"))
+                      .group_by(col("l_orderkey"))
+                      .agg(F.count(lit(1)).alias("nlate"))
+                      .select(col("l_orderkey").alias("late_key"),
+                              col("nlate")))
+    return _q21_blamed(t, late, supp_per_order, late_per_order)
 
 
 def q2(t):
@@ -870,10 +889,10 @@ def q11(t, fraction: float = Q11_FRACTION):
 Q16_SIZES = (49, 14, 23, 45, 19, 3, 36, 9)
 
 
-def q16(t):
-    """TPC-H q16: how many suppliers without complaints offer parts of
-    each brand, type and size (a left_anti join, then a distinct count as
-    two levels of grouping by string keys)."""
+def _q16_partsupp(t, dsl=_L):
+    """q16's partsupp rows: suppliers without complaints, parts of the
+    sizes, brands and types it keeps."""
+    col = dsl.col
     part = t["part"].filter(
         (col("p_brand") != "Brand#45")
         & ~col("p_type").startswith("MEDIUM POLISHED")
@@ -881,10 +900,17 @@ def q16(t):
     bad_supp = t["supplier"].filter(
         col("s_comment").contains("Customer")
         & col("s_comment").contains("Complaints"))
-    ps = (t["partsupp"]
-          .join(bad_supp, on=col("ps_suppkey") == col("s_suppkey"),
-                how="left_anti")
-          .join(part, on=col("ps_partkey") == col("p_partkey")))
+    return (t["partsupp"]
+            .join(bad_supp, on=col("ps_suppkey") == col("s_suppkey"),
+                  how="left_anti")
+            .join(part, on=col("ps_partkey") == col("p_partkey")))
+
+
+def q16(t):
+    """TPC-H q16: how many suppliers without complaints offer parts of
+    each brand, type and size (a left_anti join, then a distinct count as
+    two levels of grouping by string keys)."""
+    ps = _q16_partsupp(t)
     distinct_ps = (ps.group_by(col("p_brand"), col("p_type"), col("p_size"),
                                col("ps_suppkey"))
                    .agg(F.count(lit(1)).alias("_c")))
@@ -1120,6 +1146,91 @@ MATH_QUERIES = {"price_dispersion": price_dispersion,
                 "price_decades": price_decades,
                 "hash_partitions": hash_partitions,
                 "hash_sample": hash_sample}
+
+
+# --------------------------------------------------------------------------
+# First, Last, distinct aggregates and string Min/Max.  Each takes the
+# dict of DataFrames by table name and `dsl`, as MATH_QUERIES do
+# --------------------------------------------------------------------------
+
+def q16_distinct(t, dsl=_L):
+    """TPC-H q16 as its specification writes it: count(distinct
+    ps_suppkey) by brand, type and size.  Its rows are q16's."""
+    F, col = dsl.functions, dsl.col
+    return (_q16_partsupp(t, dsl)
+            .group_by(col("p_brand"), col("p_type"), col("p_size"))
+            .agg(F.count_distinct(col("ps_suppkey")).alias("supplier_cnt"))
+            .order_by(dsl.SortOrder(col("supplier_cnt"), ascending=False),
+                      "p_brand", "p_type", "p_size"))
+
+
+def q21_distinct(t, dsl=_L):
+    """TPC-H q21 with its per-order counts of suppliers and of late
+    suppliers as count(distinct l_suppkey).  Its rows are q21's."""
+    F, col = dsl.functions, dsl.col
+    li, late = _q21_lines(t, dsl)
+
+    def suppliers(lines, key, name):
+        return (lines.group_by(col("l_orderkey"))
+                .agg(F.count_distinct(col("l_suppkey")).alias(name))
+                .select(col("l_orderkey").alias(key), col(name)))
+    return _q21_blamed(t, late, suppliers(li, "all_key", "nsupp"),
+                       suppliers(late, "late_key", "nlate"), dsl)
+
+
+def priority_migration(t, dsl=_L):
+    """Each customer's first and last order priority, the date of the
+    first order and the price of the last (the latest record per key:
+    orders sorted by date and key, then first/last), then per (first,
+    last) priority pair its customers, earliest first order and summed
+    last prices: 25 rows."""
+    F, col, lit = dsl.functions, dsl.col, dsl.lit
+    per_customer = (t["orders"].order_by("o_orderdate", "o_orderkey")
+                    .group_by(col("o_custkey"))
+                    .agg(F.first(col("o_orderpriority"))
+                         .alias("first_priority"),
+                         F.last(col("o_orderpriority"))
+                         .alias("last_priority"),
+                         F.first(col("o_orderdate")).alias("first_date"),
+                         F.last(col("o_totalprice")).alias("last_price")))
+    return (per_customer.group_by(col("first_priority"),
+                                  col("last_priority"))
+            .agg(F.count(lit(1)).alias("customers"),
+                 F.min(col("first_date")).alias("earliest"),
+                 F.sum(col("last_price")).alias("last_price_sum"))
+            .order_by("first_priority", "last_priority"))
+
+
+def segment_bounds(t, dsl=_L):
+    """Per market segment: the least and greatest customer name, the
+    least address, the greatest comment and the distinct nations."""
+    F, col = dsl.functions, dsl.col
+    return (t["customer"].group_by(col("c_mktsegment"))
+            .agg(F.min(col("c_name")).alias("min_name"),
+                 F.max(col("c_name")).alias("max_name"),
+                 F.min(col("c_address")).alias("min_address"),
+                 F.max(col("c_comment")).alias("max_comment"),
+                 F.count_distinct(col("c_nationkey")).alias("nations"))
+            .order_by("c_mktsegment"))
+
+
+def urgent_summary(t, dsl=_L):
+    """One row over the 1-URGENT orders: their distinct customers, least
+    and greatest comment, first and last order key, and count."""
+    F, col, lit = dsl.functions, dsl.col, dsl.lit
+    return (t["orders"].filter(col("o_orderpriority") == "1-URGENT")
+            .agg(F.count_distinct(col("o_custkey")).alias("customers"),
+                 F.min(col("o_comment")).alias("min_comment"),
+                 F.max(col("o_comment")).alias("max_comment"),
+                 F.first(col("o_orderkey")).alias("first_order"),
+                 F.last(col("o_orderkey")).alias("last_order"),
+                 F.count(lit(1)).alias("orders")))
+
+
+AGG_QUERIES = {"q16_distinct": q16_distinct, "q21_distinct": q21_distinct,
+               "priority_migration": priority_migration,
+               "segment_bounds": segment_bounds,
+               "urgent_summary": urgent_summary}
 
 
 # --------------------------------------------------------------------------
@@ -1394,6 +1505,58 @@ def oracle_hash_partitions(t: Dict[str, np.ndarray]) -> List[tuple]:
                       minlength=HASH_PARTITIONS)
     return [(int(p), int(lines[p]), float(qty[p]))
             for p in np.flatnonzero(lines)]
+
+
+def oracle_priority_migration(t) -> List[tuple]:
+    o = t["orders"]
+    by_date = np.lexsort((o["o_orderkey"], o["o_orderdate"]))
+    # each customer's orders, in date order
+    rows = by_date[np.argsort(o["o_custkey"][by_date], kind="stable")]
+    cust = o["o_custkey"][rows]
+    starts = np.flatnonzero(np.r_[True, cust[1:] != cust[:-1]])
+    first, last = rows[starts], rows[np.r_[starts[1:], len(rows)] - 1]
+    prios, code = np.unique(o["o_orderpriority"], return_inverse=True)
+    pair = code[first] * len(prios) + code[last]
+    keys, inv = np.unique(pair, return_inverse=True)
+    earliest = np.full(len(keys), np.iinfo(np.int64).max)
+    np.minimum.at(earliest, inv, o["o_orderdate"][first])
+    total = np.bincount(inv, weights=o["o_totalprice"][last])
+    names = _text(prios)
+    return [(str(names[k // len(prios)]), str(names[k % len(prios)]),
+             int(n), _date(earliest[i]), float(total[i]))
+            for i, (k, n) in enumerate(zip(keys, np.bincount(inv)))]
+
+
+def oracle_segment_bounds(t) -> List[tuple]:
+    c = t["customer"]
+    out = []
+    for seg in np.unique(c["c_mktsegment"]):
+        m = c["c_mktsegment"] == seg
+        name, addr, comment = (np.sort(c[k][m]) for k in
+                               ("c_name", "c_address", "c_comment"))
+        out.append(tuple(str(_text(v)) for v in (
+            seg, name[0], name[-1], addr[0], comment[-1]))
+            + (len(np.unique(c["c_nationkey"][m])),))
+    return out
+
+
+def oracle_urgent_summary(t) -> List[tuple]:
+    o = t["orders"]
+    rows = np.flatnonzero(o["o_orderpriority"] == b"1-URGENT")
+    if not len(rows):
+        return [(0, None, None, None, None, 0)]
+    comment = np.sort(o["o_comment"][rows])
+    return [(len(np.unique(o["o_custkey"][rows])), str(_text(comment[0])),
+             str(_text(comment[-1])), int(o["o_orderkey"][rows[0]]),
+             int(o["o_orderkey"][rows[-1]]), len(rows))]
+
+
+def match_agg_query(name: str, want: List[tuple],
+                    got: List[tuple]) -> bool:
+    """`got` against the oracle's rows (q16_distinct's and q21_distinct's
+    are q16's and q21's) under rows_match: the float sum of
+    priority_migration within its relative 1e-9, the rest exact."""
+    return rows_match(want, got)
 
 
 def oracle_hash_sample(t: Dict[str, np.ndarray]) -> List[tuple]:
@@ -1929,7 +2092,11 @@ ORACLES = {"q1": oracle_q1, "q6": oracle_q6, "q18_inner": oracle_q18_inner,
            "price_dispersion": oracle_price_dispersion,
            "price_decades": oracle_price_decades,
            "hash_partitions": oracle_hash_partitions,
-           "hash_sample": oracle_hash_sample}
+           "hash_sample": oracle_hash_sample,
+           "q16_distinct": oracle_q16, "q21_distinct": oracle_q21,
+           "priority_migration": oracle_priority_migration,
+           "segment_bounds": oracle_segment_bounds,
+           "urgent_summary": oracle_urgent_summary}
 # how many of the oracle's rows each top-N query keeps, and the column it
 # orders by first
 TOP_N = {"q3": (10, 3), "q10": (20, 7), "q18": (100, 4), "q2": (100, 0)}

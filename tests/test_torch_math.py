@@ -31,9 +31,11 @@ inside the functions that use it: tests/test_torch_cuda.py reuses the
 table and the cases on a machine without JAX.
 """
 import math
+import os
 
 import numpy as np
 import pytest
+import torch
 
 from spark_rapids_tpu_torch import TpuSession
 from spark_rapids_tpu_torch import types as PT
@@ -41,6 +43,19 @@ from spark_rapids_tpu_torch.columnar import batch_from_numpy
 from spark_rapids_tpu_torch.ops import expressions as PE
 from spark_rapids_tpu_torch.ops import math as PM
 from spark_rapids_tpu_torch.plan import logical as PL
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """Under xdist, one torch thread a worker: six workers each running an
+    intra-op pool over every core slow one another down."""
+    if not os.environ.get("PYTEST_XDIST_WORKER"):
+        yield
+        return
+    old = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(old)
 
 N = 2048
 REL = 1e-13
