@@ -85,7 +85,7 @@ Phases, each printing a line:
      exact), with its time on the card;
   7. date arithmetic and casts: (a) each date-arithmetic class (DateAdd
      to NextDay) and each cast route to or from a date or a timestamp,
-     on the card against the CPU over seeded 2^24-row columns like phase
+     on the card against the CPU over seeded 2^22-row columns like phase
      6's (day counts beyond int32 in a long column, month counts of
      +-1200, seconds, and text written by the port's own date and
      timestamp formats with about 10% of rows made malformed), values,
@@ -100,7 +100,7 @@ Phases, each printing a line:
      shapes checked against the plain versions;
   8. text casts: (a) each cast between text and integers, floats and
      booleans and between numbers and booleans, on the card against the
-     CPU over seeded 2^22-row columns (`text_cast_batch`: integers of
+     CPU over seeded 2^20-row columns (`text_cast_batch`: integers of
      each width at their extremes, doubles written by numpy's shortest
      round trip with subnormals, +-0 and exponents to +-400, boolean
      words in mixed case, about 10% of the text made malformed), values,
@@ -118,7 +118,7 @@ Phases, each printing a line:
      against the plain versions;
   9. math, bitwise and hash: (a) each class of the bitwise family,
      ops/math.py and murmur3 (every type alone, and all columns folded)
-     on the card against the CPU over seeded 2^22-row columns
+     on the card against the CPU over seeded 2^20-row columns
      (`math_batch`: integers of each width at their extremes, doubles
      pairing every special value with every other, +-1e19, subnormals,
      values a hair off +-1 and on the x.5 boundaries of the round
@@ -153,7 +153,25 @@ Phases, each printing a line:
      last) to their numpy oracles, with the numbers of a phase 3 `query`
      line (`agg_query` lines); q21_distinct must launch K1, K2 and K3,
      and every shape phase 10 launches joins the shapes checked against
-     the plain versions.
+     the plain versions;
+ 11. union, distinct, rollup and cube: (a) each of `set_cases` (a union
+     of children with text 64 and 8 bytes wide, then grouped; a union
+     then distinct; a distinct over an int, a long, a double with NaN
+     and +-0.0, a date, a boolean and text; a rollup of an int and a
+     text key with data nulls beside the rolled-up nulls; a cube of
+     three keys, eight projections of 2^20 rows; a rollup with a
+     compound aggregate and an aggregate over a key; a rollup with
+     First/Last and a distinct count, whose coalesce sits above the
+     Expand) through a card session and a CPU session over `set_table`'s
+     seeded 2^20 rows in batches of 2^18, rows equal (float sums within
+     SUM_REL_TOL), each with its time on the card (`set_op` lines); (b)
+     tpch.SET_QUERIES over the resident tables (`q1_rollup`,
+     `cube_orders`, `rollup_nation_year`, `union_supply`,
+     `supplier_reach`, `customer_priorities`) held to their numpy
+     oracles, with the numbers of a phase 3 `query` line (`set_query`
+     lines); union_supply must launch K1, K2 and K3, customer_priorities
+     K3, and every shape phase 11 launches joins the shapes checked
+     against the plain versions.
 A `phase_seconds` line gives each phase's wall seconds.  The
 second-last line is the card as nvidia-smi names it; the last is
 {"ok": true, "device": {...}}.  Any failure raises: nothing is caught,
@@ -219,11 +237,18 @@ MAY_BE_EMPTY = {"q20"}
 SORT_PATH = ("q10", "q13", "q15", "q17", "q18", "q21", "q2", "q11", "q16",
              "q20", "q20_any_part")
 DATE_PART_ROWS = 1 << 24
-DATE_ARITH_ROWS = 1 << 24
-TEXT_CAST_ROWS = 1 << 22
-MATH_ROWS = 1 << 22
+# phases 9, 8 and 7 (a) were cut from 2^22, 2^22 and 2^24 rows to keep
+# the whole run inside its time limit
+DATE_ARITH_ROWS = 1 << 22
+TEXT_CAST_ROWS = 1 << 20
+MATH_ROWS = 1 << 20
 AGG_ROWS = 1 << 20         # phase 10 (a): rows, in batches of AGG_BATCH_ROWS
 AGG_BATCH_ROWS = 1 << 18
+SET_ROWS = 1 << 20         # phase 11 (a): rows, in batches of SET_BATCH_ROWS
+SET_BATCH_ROWS = 1 << 18
+# phase 11 (b): the kernels each query must launch
+SET_LAUNCHES = {"union_supply": ("seg_scan", "cumsum", "sort_words"),
+                "customer_priorities": ("sort_words",)}
 # text the JAX package's parses read apart from Spark: digit sums that
 # wrap in int64, a mantissa of more than 19 digits, 10^23, scales past
 # 10^308
@@ -1332,6 +1357,166 @@ def run_agg_queries(dfs: dict, tables: dict, rows: dict) -> list:
     return shapes
 
 
+def set_table(n: int, seed: int = 42) -> tuple:
+    """Phase 11 (a)'s columns (numpy, nulls masked) and schema:
+    `agg_table`'s, then keys of few values, each about 10% null: `g` an
+    int of 16, `b` a boolean, `t` text of 0-4 bytes over 6 words, `ls` a
+    long of 3, `xs` a double of NaN, +-0.0, 1.5, -2.25 and inf, `ds` a
+    date of 5 days."""
+    cols, schema = agg_table(n, seed)
+    rng = np.random.default_rng([seed, 11])
+    words = np.array([b"", b"a", b"b", b"ab", b"AIR", b"\xe2\x82\xacu"])
+    extra = {"g": (rng.integers(0, 16, n, dtype=np.int32), IntegerType),
+             "b": (rng.random(n) < 0.5, BooleanType),
+             "t": (words[rng.integers(0, len(words), n)], StringType),
+             "ls": (rng.integers(-1, 2, n) * (1 << 40), LongType),
+             "xs": (rng.choice([np.nan, 0.0, -0.0, 1.5, -2.25, np.inf], n),
+                    DoubleType),
+             "ds": (rng.integers(10_000, 10_005, n, dtype=np.int32),
+                    DateType)}
+    fields = list(schema.fields)
+    for name, (v, dtype) in extra.items():
+        cols[name] = np.ma.masked_array(v, mask=rng.random(n) < 0.1)
+        fields.append(StructField(name, dtype))
+    return cols, Schema(fields)
+
+
+def narrow_table(cols: dict, n: int) -> dict:
+    """The first n rows of set_table's columns, `s` cut to 8 bytes: a
+    union child whose text column is 8 bytes wide against 64."""
+    out = {c: v[:n] for c, v in cols.items()}
+    out["s"] = np.ma.masked_array(out["s"].data.astype("S8"),
+                                  mask=np.ma.getmaskarray(out["s"]))
+    return out
+
+
+def set_cases() -> list:
+    """(name, query over phase 11 (a)'s DataFrame and its narrow twin,
+    the output columns held within SUM_REL_TOL).  Each orders its rows
+    by its keys and a count (and a sum where a data null and a rolled-up
+    null could still tie), so both sessions' rows come in one order."""
+    lit = F.lit
+
+    def union_grouped(df, nw):
+        u = df.select(col("k1k"), col("s"), col("i")).union(
+            nw.select(col("k1k"), col("s"), col("i")))
+        return u.group_by(col("k1k")).agg(
+            F.count(lit(1)).alias("n"), F.count(col("s")).alias("ns"),
+            F.first(col("s")).alias("first_s"),
+            F.last(col("s")).alias("last_s"),
+            F.sum(col("i")).alias("si")).order_by("k1k")
+
+    def union_distinct(df, nw):
+        keys = ("g", "t", "b")
+        return df.select(*keys).union(nw.select(*keys)).distinct() \
+            .order_by(*keys)
+
+    def distinct_types(df, nw):
+        keys = ("g", "ls", "xs", "ds", "b", "t")
+        return df.select(*keys).distinct().order_by(*keys)
+
+    def rollup_null_key(df, nw):
+        return df.rollup(col("g"), col("t")).agg(
+            F.count(lit(1)).alias("n"), F.sum(col("i")).alias("si"),
+            F.sum(col("l")).alias("sl"), F.max(col("d")).alias("max_d")) \
+            .order_by("g", "t", "n", "si")
+
+    def cube3(df, nw):
+        return df.cube(col("g"), col("b"), col("t")).agg(
+            F.count(lit(1)).alias("n"), F.sum(col("i")).alias("si"),
+            F.min(col("xs")).alias("min_xs")) \
+            .order_by("g", "b", "t", "n", "si")
+
+    def rollup_compound(df, nw):
+        return df.rollup(col("g"), col("b")).agg(
+            (F.sum(col("i")) / F.count(col("i"))).alias("mean_i"),
+            F.sum(col("g")).alias("sg"), F.count(lit(1)).alias("n")) \
+            .order_by("g", "b", "n", "sg")
+
+    def rollup_first_last(df, nw):
+        return df.rollup(col("g"), col("b")).agg(
+            F.first(col("i")).alias("first_i"),
+            F.last(col("s")).alias("last_s"),
+            F.count_distinct(col("t")).alias("texts"),
+            F.count(lit(1)).alias("n")).order_by("g", "b", "n")
+    return [("union_grouped", union_grouped, ()),
+            ("union_distinct", union_distinct, ()),
+            ("distinct_types", distinct_types, ()),
+            ("rollup_null_key", rollup_null_key, ()),
+            ("cube3", cube3, ()),
+            ("rollup_compound", rollup_compound, ("mean_i",)),
+            ("rollup_first_last", rollup_first_last, ())]
+
+
+def check_set_ops(device: str = "cuda") -> list:
+    """Phase 11 (a): each of `set_cases` through a TpuSession on the card
+    and one on the CPU over set_table(SET_ROWS) and its narrow twin of a
+    quarter of the rows, read in batches of SET_BATCH_ROWS; one `set_op`
+    line each, with its time on the card.  Returns the (kernel, shape)
+    pairs the card launched."""
+    cols, schema = set_table(SET_ROWS)
+    nw = narrow_table(cols, SET_ROWS // 4)
+    conf = dict(CONF, **{"spark.rapids.sql.reader.batchSizeRows":
+                         str(SET_BATCH_ROWS)})
+    frames = {}
+    for dev in (device, "cpu"):
+        s = TpuSession(dict(conf), device=dev)
+        frames[dev] = (s.from_numpy(cols, schema), s.from_numpy(nw, schema))
+    shapes = []
+    for name, q, approx in set_cases():
+        K.reset_launches()
+        got = q(*frames[device]).collect()
+        launches = K.launch_counts()
+        shapes += launched_shapes()
+        plan = frames[device][0].session.last_plan
+        want = q(*frames["cpu"]).collect()
+        ok = _rows_agree(want, got, q(*frames["cpu"]).schema.names, approx)
+        print("set_op " + json.dumps({
+            "case": name, "rows": len(got), "matches_cpu": ok,
+            "ms": time_ms(lambda: q(*frames[device]).to_pydict(), 3),
+            "launches": launches, "agg_update_paths": _update_paths(plan),
+            "expand_projections": _expand_projections(plan)}), flush=True)
+        if not ok or not got:
+            raise AssertionError(f"{name} on the card differs from the CPU "
+                                 f"or is empty: {got[:2]} vs {want[:2]}")
+    return shapes
+
+
+def run_set_queries(dfs: dict, tables: dict) -> list:
+    """Phase 11 (b): each of tpch.SET_QUERIES over the resident tables
+    (`measure`), held to its numpy oracle, with the numbers of a phase 3
+    `query` line, the update paths and the Expand's projections; each
+    query of SET_LAUNCHES must launch its kernels.  Returns the (kernel,
+    shape) pairs they launched."""
+    shapes = []
+    for name, query in tpch.SET_QUERIES.items():
+        resident = torch.cuda.memory_allocated()
+        got, df, numbers, launched = measure(lambda query=query:
+                                             query(dfs))
+        shapes += launched
+        t0 = time.perf_counter()
+        want = tpch.ORACLES[name](tables)
+        oracle_s = time.perf_counter() - t0
+        match = tpch.match_set_query(name, want, got)
+        plan = df.session.last_plan
+        print("set_query " + json.dumps({
+            "query": name, "rows": len(got), "matches_oracle": match,
+            "oracle_s": oracle_s, "joins": join_nodes(plan),
+            "agg_update_paths": _update_paths(plan),
+            "expand_projections": _expand_projections(plan),
+            "resident_device_bytes": resident, **numbers,
+            "result": [[str(v) for v in r] for r in got[:4]]}), flush=True)
+        if not match or not got:
+            raise AssertionError(f"{name} disagrees with its numpy oracle "
+                                 f"or is empty: {got[:3]} vs {want[:3]}")
+        idle = [k for k in SET_LAUNCHES.get(name, ())
+                if not numbers["launches"][k]]
+        if idle:
+            raise AssertionError(f"{name} did not launch {idle}: "
+                                 f"{numbers['launches']}")
+    return shapes
+
+
 def shape_launches(before: list = ()) -> list:
     """[kernel, shape, launches] of every kernel shape launched since the
     last reset, less the launches in `before` (an earlier reading)."""
@@ -1462,6 +1647,15 @@ def profile_query(q, top: int = 8) -> dict:
                     for e in kernels[:top]]}
 
 
+def _expand_projections(node) -> list:
+    """The projection count of every Expand in the plan, depth first."""
+    out = [len(node.projections)] if type(node).__name__ == \
+        "TpuExpandExec" else []
+    for c in node.children:
+        out += _expand_projections(c)
+    return out
+
+
 def _update_paths(node) -> list:
     """The update paths of every aggregate in the plan, depth first."""
     out = [dict(node.update_paths)] \
@@ -1521,15 +1715,20 @@ def main() -> int:
     ends.append(("math, bitwise and hash", time.perf_counter()))
     shapes += check_agg_functions()
     shapes += run_agg_queries(dfs, tables, rows)
-    del dfs
     torch.cuda.empty_cache()
     ends.append(("first, last, distinct and string bounds",
                  time.perf_counter()))
+    shapes += check_set_ops()
+    shapes += run_set_queries(dfs, tables)
+    del dfs
+    torch.cuda.empty_cache()
+    ends.append(("union, distinct, rollup and cube", time.perf_counter()))
     shapes = list(dict.fromkeys(shapes))
     rest = [ks for ks in shapes if ks not in checked]
     print(f"kernels: {len(shapes) - len(rest)} of the {len(shapes)} shapes "
           f"launched by the queries, filters, outer joins, date, text, "
-          f"math and aggregate queries were checked in phase 2; checking "
+          f"math, aggregate and set queries were checked in phase 2; "
+          f"checking "
           f"the other "
           f"{len(rest)}", flush=True)
     check_kernels(gen, dev, rest, report)

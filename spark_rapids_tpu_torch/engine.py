@@ -1,6 +1,6 @@
 """Session and DataFrame API of the port (the slice of
-spark_rapids_tpu/engine.py that its TPC-H queries use; rollup and cube
-are not ported).
+spark_rapids_tpu/engine.py that its TPC-H queries use, with union,
+distinct, rollup and cube).
 
     s = TpuSession({"spark.rapids.sql.variableFloatAgg.enabled": "true"})
     df = s.from_numpy({"k": np.array([1, 2, 1]), "v": np.array([.5, 1., 2.])})
@@ -125,8 +125,32 @@ class DataFrame:
     def group_by(self, *cols) -> "GroupedData":
         return GroupedData(self, self._wrap_cols(cols))
 
+    def rollup(self, *cols) -> "GroupedData":
+        """GROUP BY ROLLUP: grouping sets {(k1..kn), (k1..kn-1), ..., ()},
+        planned as an Expand fan-out and one hash aggregate keyed on
+        (keys..., grouping id)."""
+        return GroupedData(self, self._wrap_cols(cols), rollup=True)
+
+    def cube(self, *cols) -> "GroupedData":
+        """GROUP BY CUBE: every subset of the keys as a grouping set (the
+        rollup's plan with 2^n projections)."""
+        return GroupedData(self, self._wrap_cols(cols), rollup=True,
+                           cube=True)
+
     def agg(self, *aggs) -> "DataFrame":
         return GroupedData(self, []).agg(*aggs)
+
+    def union(self, other: "DataFrame") -> "DataFrame":
+        """UNION ALL, by position: the columns take this DataFrame's names.
+        The planner raises where the children differ in arity or in a
+        column's type (the JAX package widens no type)."""
+        return DataFrame(self.session,
+                         L.LogicalUnion([self.plan, other.plan]))
+
+    unionAll = union
+
+    def distinct(self) -> "DataFrame":
+        return DataFrame(self.session, L.LogicalDistinct(self.plan))
 
     def join(self, other: "DataFrame", on=None, how: str = "inner"
              ) -> "DataFrame":
@@ -196,9 +220,12 @@ class DataFrame:
 
 
 class GroupedData:
-    def __init__(self, df: DataFrame, keys: List[ColumnExpr]):
+    def __init__(self, df: DataFrame, keys: List[ColumnExpr],
+                 rollup: bool = False, cube: bool = False):
         self.df = df
         self.keys = keys
+        self.rollup = rollup
+        self.cube = cube
 
     def agg(self, *aggs) -> DataFrame:
         """Aggregate.  An entry that computes over aggregates (e.g.
@@ -242,9 +269,59 @@ class GroupedData:
                 compound = True
                 projections.append(rewritten.alias(e.output_name))
 
-        agg_plan = L.LogicalAggregate(self.keys, leaf_aggs, self.df.plan)
-        if not compound:
+        child_plan = self.df.plan
+        group_keys = list(self.keys)
+        if self.rollup:
+            child_plan, group_keys = self._expand_rollup(child_plan)
+        agg_plan = L.LogicalAggregate(group_keys, leaf_aggs, child_plan)
+        if not compound and not self.rollup:
             return DataFrame(self.df.session, agg_plan)
+        if not compound:
+            projections = [col(a.output_name) for a in leaf_aggs]
+        # a rollup's projection drops the grouping id
         key_cols = [col(k.output_name) for k in self.keys]
         return DataFrame(self.df.session, L.LogicalProject(
             key_cols + projections, agg_plan))
+
+    def _expand_rollup(self, child_plan):
+        """The Expand of the grouping sets, one projection each, and the
+        aggregate's keys.  Every original column passes through unchanged
+        (an aggregate over a key column sees its real values in subtotal
+        rows), then one nullable copy per key, `_gkey_<name>`, null where
+        the set rolls the key up, and `_grouping_id`, so that a rolled-up
+        null never merges with a data null.  The id follows Spark's
+        grouping_id: a cube's bits mark the pruned keys, the first key
+        the highest bit; a rollup keeping g of n keys has 2^(n-g) - 1."""
+        schema = self.df.schema
+        key_names = [k.output_name for k in self.keys]
+        for k, name in zip(self.keys, key_names):
+            if k.op != "col" or name not in schema.names:
+                raise ValueError(
+                    "rollup keys must be existing columns; project "
+                    f"{name!r} first")
+        gid = "_grouping_id"
+        n = len(self.keys)
+        if self.cube:
+            sets = [[name for b, name in enumerate(key_names)
+                     if not (mask >> (n - 1 - b)) & 1]
+                    for mask in range(1 << n)]
+            gids = list(range(1 << n))
+        else:
+            sets = [key_names[:g] for g in range(n, -1, -1)]
+            gids = [(1 << (n - g)) - 1 for g in range(n, -1, -1)]
+        projections = []
+        for kept, g_val in zip(sets, gids):
+            proj = [col(f.name) for f in schema]
+            for name in key_names:
+                copy = (col(name) if name in kept
+                        else lit(None).cast(
+                            schema[schema.index_of(name)].dtype))
+                proj.append(copy.alias(f"_gkey_{name}"))
+            proj.append(lit(g_val).alias(gid))
+            projections.append(proj)
+        group_keys = [col(f"_gkey_{name}").alias(name)
+                      for name in key_names] + [col(gid)]
+        return L.LogicalExpand(projections, child_plan), group_keys
+
+    def count(self) -> DataFrame:
+        return self.agg(L.functions.count(lit(1)).alias("count"))

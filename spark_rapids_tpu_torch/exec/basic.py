@@ -1,6 +1,7 @@
 """Basic operators: the in-memory scan, project, filter, limit, the
-coalesce of a stream into one batch, and the device-to-host edge (port
-of the device half of spark_rapids_tpu/exec/basic.py).
+coalesce of a stream into one batch, union, the expand of rollup and
+cube, and the device-to-host edge (port of the device half of
+spark_rapids_tpu/exec/basic.py).
 
 Project and filter move no data: filter ANDs into the batch's selection
 mask.  Whole-stage fusion does not exist in the port yet; each operator
@@ -159,6 +160,59 @@ class TpuCoalesceBatchesExec(ExecNode):
                else concat_batches(batches, packed)]
         del batches
         yield out.pop()
+
+
+class TpuUnionExec(ExecNode):
+    """Each child's batches in turn (the planner checks that the children
+    agree in arity and types; the first names the columns)."""
+
+    def __init__(self, children: Sequence[ExecNode]):
+        super().__init__(*children)
+
+    @property
+    def schema(self):
+        return self.children[0].schema
+
+    def execute(self, ctx):
+        for child in self.children:
+            yield from map_batches(child.execute(ctx), lambda b: ColumnarBatch(
+                b.columns, b.sel, self.schema))
+
+
+class TpuExpandExec(ExecNode):
+    """Projection-list fan-out (ROLLUP/CUBE): one batch per projection of
+    each input batch, in projection order, so the live rows come in the
+    order of the JAX package's exec, which concatenates the projections
+    into one batch of n times the capacity (a static shape the TPU
+    needs; eager torch would only pay n times the peak memory for it).
+    The string columns of every projection are padded to the widest
+    across the projections, so all the batches share one layout."""
+
+    def __init__(self, projections: List[List[E.Expression]],
+                 names: Sequence[str], child: ExecNode):
+        super().__init__(child)
+        self.projections = projections
+        self._schema = Schema([StructField(n, e.dtype)
+                               for n, e in zip(names, projections[0])])
+
+    @property
+    def schema(self):
+        return self._schema
+
+    def execute(self, ctx):
+        strings = [i for i, f in enumerate(self._schema) if f.dtype.is_string]
+        for batch in self.children[0].execute(ctx):
+            # a width evaluates the column and drops it: a reference
+            # costs nothing, a null key copy one small allocation
+            width = {i: max(p[i].eval(batch).max_len
+                            for p in self.projections) for i in strings}
+            for proj in self.projections:
+                cols = [e.eval(batch) for e in proj]
+                for i in strings:
+                    cols[i] = cols[i].pad_strings_to(width[i])
+                out = [ColumnarBatch(cols, batch.sel, self._schema)]
+                del cols
+                yield out.pop()
 
 
 class DeviceToHostExec(ExecNode):

@@ -17,8 +17,8 @@ the JAX package either: they are built by op name), the math functions
 `hypot`, `cot`, `log_base`, `asinh`, `acosh` and `atanh`, and `hash`
 (the other math classes and the bitwise ones have no function in the JAX
 package either: `ColumnExpr("Sin", (e,))`, `ColumnExpr("ShiftLeft", (e,
-n))`), `SortOrder`, and the scan, filter, project, aggregate, join, sort
-and limit nodes.  Op names
+n))`), `SortOrder`, and the scan, filter, project, aggregate, join, sort,
+limit, union, distinct and expand nodes.  Op names
 and argument layouts are the JAX package's, so one ColumnExpr tree means
 the same to both.
 """
@@ -458,4 +458,26 @@ class LogicalSort(LogicalPlan):
 class LogicalLimit(LogicalPlan):
     def __init__(self, n: int, child: LogicalPlan):
         self.n = n
+        self.children = (child,)
+
+
+class LogicalUnion(LogicalPlan):
+    """UNION ALL of n children, by position: the first child names the
+    columns."""
+
+    def __init__(self, children: Sequence[LogicalPlan]):
+        self.children = tuple(children)
+
+
+class LogicalDistinct(LogicalPlan):
+    def __init__(self, child: LogicalPlan):
+        self.children = (child,)
+
+
+class LogicalExpand(LogicalPlan):
+    """ROLLUP/CUBE fan-out: list of projection lists."""
+
+    def __init__(self, projections: Sequence[Sequence[ColumnExpr]],
+                 child: LogicalPlan):
+        self.projections = [list(p) for p in projections]
         self.children = (child,)

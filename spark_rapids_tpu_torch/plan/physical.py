@@ -6,13 +6,17 @@ The JAX package tags every node for the device or the CPU
 (transitions.py).  The port has no CPU executor, so none of that applies
 yet: every node becomes its device exec, and a node, expression or
 aggregate outside the slice raises NotImplementedError here, at planning
-time, as does a cast the JAX package's tagging sends to its CPU executor
+time, as does a union whose children differ in arity or in a column's
+type (the JAX package widens no type, and cannot run such a union
+whole), a cast the JAX package's tagging sends to its CPU executor
 (string -> timestamp without castStringToTimestamp, string -> float or
 double without castStringToFloat), and an aggregate list it sends there
 (Percentile, distinct First or Last, two distinct children).  An
 aggregate that dedups a distinct child reads its input through a
-TpuCoalesceBatchesExec: its update must see every row in one batch.  The session prunes
-the scans' columns first (plan/pushdown.py).
+TpuCoalesceBatchesExec: its update must see every row in one batch.
+A distinct is a hash aggregate over every column with no aggregate
+expression, as Spark plans it.  The session prunes the scans' columns
+first (plan/pushdown.py).
 
 A join is planned by the JAX package's rules (its plan/physical.py), so
 both packages choose the same exec and the same build side:
@@ -33,8 +37,10 @@ both packages choose the same exec and the same build side:
     builds the whole right side as one batch.
 Estimates are the JAX package's: rows from the scans (kept through row-
 local nodes, a limit's n, one row for a global aggregate, the larger
-side for a join, the left side for semi/anti) times the output schema's
-width (strings at 32 bytes); a scan's bytes are its table's.
+side for a join, the left side for semi/anti, a distinct's child's, the
+sum of a union's children, an expand's child's times its projections)
+times the output schema's width (strings at 32 bytes); a scan's bytes
+are its table's.
 """
 from __future__ import annotations
 
@@ -46,9 +52,9 @@ from ..config import (AUTO_BROADCAST_JOIN_THRESHOLD, CAST_STRING_TO_FLOAT,
                       TpuConf)
 from ..exec.aggregate import TpuHashAggregateExec
 from ..exec.base import ExecNode
-from ..exec.basic import (TpuCoalesceBatchesExec, TpuFilterExec,
-                          TpuGlobalLimitExec, TpuProjectExec,
-                          TpuScanMemoryExec)
+from ..exec.basic import (TpuCoalesceBatchesExec, TpuExpandExec,
+                          TpuFilterExec, TpuGlobalLimitExec, TpuProjectExec,
+                          TpuScanMemoryExec, TpuUnionExec)
 from ..exec.broadcast import TpuBroadcastExchangeExec, TpuBroadcastHashJoinExec
 from ..exec.join import TpuHashJoinExec, TpuReorderColumnsExec, joined_schema
 from ..exec.sort import TpuSortExec
@@ -93,8 +99,14 @@ def _gated(e: Expression, conf: TpuConf) -> Expression:
 def plan_schema(plan: L.LogicalPlan, conf: TpuConf) -> Schema:
     if isinstance(plan, L.LogicalScan):
         return plan.schema
-    if isinstance(plan, (L.LogicalFilter, L.LogicalSort, L.LogicalLimit)):
+    if isinstance(plan, (L.LogicalFilter, L.LogicalSort, L.LogicalLimit,
+                         L.LogicalDistinct, L.LogicalUnion)):
+        # a union takes its first child's names and types
         return plan_schema(plan.children[0], conf)
+    if isinstance(plan, L.LogicalExpand):
+        child = plan_schema(plan.children[0], conf)
+        return Schema([StructField(ce.output_name, resolve(ce, child).dtype)
+                       for ce in plan.projections[0]])
     if isinstance(plan, (L.LogicalProject, L.LogicalAggregate)):
         child = plan_schema(plan.children[0], conf)
         exprs = (plan.exprs if isinstance(plan, L.LogicalProject)
@@ -156,10 +168,29 @@ def _aggregate(plan: L.LogicalAggregate, child: ExecNode,
     return agg
 
 
+def _union(children) -> TpuUnionExec:
+    """A union of children alike in arity and in every column's type.
+    The JAX package checks neither: it concatenates the batches by
+    position and fails, or promotes, where they differ (its collect
+    raises for any two schemas that differ, names included)."""
+    first = children[0].schema
+    for c in children[1:]:
+        s = c.schema
+        if len(s) != len(first) or any(a.dtype is not b.dtype
+                                        for a, b in zip(first, s)):
+            raise NotImplementedError(
+                f"a union of {first!r} and {s!r}: its children differ in "
+                "arity or in a column's type, which the JAX package cannot "
+                "evaluate (it widens no type)")
+    return TpuUnionExec(children)
+
+
 def convert(plan: L.LogicalPlan, conf: TpuConf) -> ExecNode:
     """Logical plan -> physical exec tree."""
     if isinstance(plan, L.LogicalScan):
         return TpuScanMemoryExec(plan.table, plan.num_rows, plan.schema)
+    if isinstance(plan, L.LogicalUnion):
+        return _union([convert(c, conf) for c in plan.children])
     if isinstance(plan, L.LogicalJoin):
         return _join(plan, conf, convert(plan.children[0], conf),
                      convert(plan.children[1], conf))
@@ -181,6 +212,15 @@ def convert(plan: L.LogicalPlan, conf: TpuConf) -> ExecNode:
                            child)
     if isinstance(plan, L.LogicalLimit):
         return TpuGlobalLimitExec(plan.n, child)
+    if isinstance(plan, L.LogicalDistinct):
+        return TpuHashAggregateExec(
+            [_resolved(L.col(n), schema, conf) for n in schema.names],
+            schema.names, [], child)
+    if isinstance(plan, L.LogicalExpand):
+        return TpuExpandExec([[_resolved(ce, schema, conf) for ce in proj]
+                              for proj in plan.projections],
+                             [ce.output_name for ce in plan.projections[0]],
+                             child)
     raise NotImplementedError(
         f"{type(plan).__name__} is not in the port's slice")
 
@@ -307,8 +347,15 @@ def _estimate_plan_rows(plan: L.LogicalPlan, conf: TpuConf
     would under-estimate, the side that wrongly broadcasts)."""
     if isinstance(plan, L.LogicalScan):
         return plan.num_rows
-    if isinstance(plan, (L.LogicalProject, L.LogicalFilter, L.LogicalSort)):
+    if isinstance(plan, (L.LogicalProject, L.LogicalFilter, L.LogicalSort,
+                         L.LogicalDistinct)):
         return _estimate_plan_rows(plan.children[0], conf)
+    if isinstance(plan, L.LogicalUnion):
+        parts = [_estimate_plan_rows(c, conf) for c in plan.children]
+        return None if any(p is None for p in parts) else sum(parts)
+    if isinstance(plan, L.LogicalExpand):
+        child = _estimate_plan_rows(plan.children[0], conf)
+        return None if child is None else child * len(plan.projections)
     if isinstance(plan, L.LogicalLimit):
         child = _estimate_plan_rows(plan.children[0], conf)
         return plan.n if child is None else min(plan.n, child)

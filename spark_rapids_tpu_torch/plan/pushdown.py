@@ -82,8 +82,14 @@ def _rewrite(node: L.LogicalPlan, required: Optional[Set[str]],
                      else refs & set(plan_schema(c, conf).names), conf)
             for c in node.children]
         return _rebuild(node, children)
+    if isinstance(node, L.LogicalExpand):
+        child_req = set()
+        col_refs(node.projections, child_req)
+        return _rebuild(node, [_rewrite(node.children[0], child_req, conf)])
     if isinstance(node, L.LogicalLimit):
         return _rebuild(node, [_rewrite(node.children[0], required, conf)])
+    # a union's children concatenate by position, each keeping its
+    # declared output; a distinct dedups whole rows
     return _rebuild(node, [_rewrite(c, None, conf) for c in node.children])
 
 

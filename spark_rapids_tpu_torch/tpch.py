@@ -12,8 +12,11 @@ hash partitioning of the lines, and a 1-in-64 sample by hash), five of
 First, Last, distinct aggregates and string Min/Max (AGG_QUERIES: q16
 and q21 with count(distinct), each customer's first and last order
 priority, per-segment string bounds of the customers, and a global
-summary of the urgent orders), and numpy oracles for them (murmur3
-among them, in numpy's uint32).
+summary of the urgent orders), six of union, distinct, rollup and cube
+(SET_QUERIES: q1 with its rollup subtotals, a cube of the orders, a
+three-level rollup over a join, a union of two channels, a union then
+distinct, and a distinct per priority), and numpy oracles for them
+(murmur3 among them, in numpy's uint32).
 
 The generator draws from the distributions of the JAX package's
 benchmarks/tpch/datagen.py, with numpy's own generator seeded by `seed`:
@@ -1234,6 +1237,124 @@ AGG_QUERIES = {"q16_distinct": q16_distinct, "q21_distinct": q21_distinct,
 
 
 # --------------------------------------------------------------------------
+# union, distinct, rollup and cube: TPC-DS's report shapes over TPC-H's
+# tables.  Each takes the dict of DataFrames by table name and `dsl`.  A
+# rollup's keys are made by a select (pruning stops at with_column)
+# --------------------------------------------------------------------------
+
+def q1_rollup(t, dsl=_L):
+    """q1 with its subtotals per return flag and a grand total (TPC-DS
+    q27's, q36's and q86's ROLLUP): 10 rows, keys ascending, nulls
+    first."""
+    F, col, lit = dsl.functions, dsl.col, dsl.lit
+    li = (t["lineitem"].filter(col("l_shipdate") <= "1998-09-02")
+          .select(col("l_returnflag"), col("l_linestatus"),
+                  col("l_quantity"), col("l_extendedprice"),
+                  col("l_discount"), col("l_tax")))
+    disc = col("l_extendedprice") * (lit(1.0) - col("l_discount"))
+    return (li.rollup(col("l_returnflag"), col("l_linestatus"))
+            .agg(F.sum(col("l_quantity")).alias("sum_qty"),
+                 F.sum(col("l_extendedprice")).alias("sum_base_price"),
+                 F.sum(disc).alias("sum_disc_price"),
+                 F.sum(disc * (lit(1.0) + col("l_tax"))).alias("sum_charge"),
+                 F.avg(col("l_quantity")).alias("avg_qty"),
+                 F.avg(col("l_extendedprice")).alias("avg_price"),
+                 F.avg(col("l_discount")).alias("avg_disc"),
+                 F.count(lit(1)).alias("count_order"))
+            .order_by("l_returnflag", "l_linestatus"))
+
+
+def cube_orders(t, dsl=_L):
+    """The orders by every subset of (priority, status): count, total and
+    mean price (a CUBE of two keys): 24 rows."""
+    F, col, lit = dsl.functions, dsl.col, dsl.lit
+    return (t["orders"].select(col("o_orderpriority"), col("o_orderstatus"),
+                               col("o_totalprice"))
+            .cube(col("o_orderpriority"), col("o_orderstatus"))
+            .agg(F.count(lit(1)).alias("orders"),
+                 F.sum(col("o_totalprice")).alias("total"),
+                 F.avg(col("o_totalprice")).alias("avg_price"))
+            .order_by("o_orderpriority", "o_orderstatus"))
+
+
+def rollup_nation_year(t, dsl=_L):
+    """Order revenue by region, nation and year with every subtotal, over
+    orders joined to customer, nation and region (TPC-DS q18's, q22's and
+    q67's three-level ROLLUP over a join): 206 rows."""
+    F, col, lit = dsl.functions, dsl.col, dsl.lit
+    joined = (t["orders"]
+              .join(t["customer"], col("o_custkey") == col("c_custkey"))
+              .join(t["nation"], col("c_nationkey") == col("n_nationkey"))
+              .join(t["region"], col("n_regionkey") == col("r_regionkey")))
+    return (joined.select(col("r_name"), col("n_name"),
+                          F.year(col("o_orderdate")).alias("o_year"),
+                          col("o_totalprice"))
+            .rollup(col("r_name"), col("n_name"), col("o_year"))
+            .agg(F.sum(col("o_totalprice")).alias("revenue"),
+                 F.count(lit(1)).alias("orders"))
+            .order_by("r_name", "n_name", "o_year"))
+
+
+def _in_1995(dsl):
+    col = dsl.col
+    return (col("l_shipdate") >= "1995-01-01") \
+        & (col("l_shipdate") < "1996-01-01")
+
+
+def union_supply(t, dsl=_L):
+    """Each supplier's 1995 revenue less the value of its stock, as one
+    channel of lines unioned with one of partsupp rows, then summed per
+    supplier (TPC-DS q5's, q77's and q80's union of channels): the 100
+    of the largest net amount, then the key."""
+    F, col, lit = dsl.functions, dsl.col, dsl.lit
+    lines = t["lineitem"].filter(_in_1995(dsl)).select(
+        col("l_suppkey").alias("supp"),
+        (col("l_extendedprice") * (lit(1.0) - col("l_discount")))
+        .alias("amount"))
+    stock = t["partsupp"].select(
+        col("ps_suppkey").alias("supp"),
+        (-(col("ps_supplycost") * col("ps_availqty"))).alias("amount"))
+    return (lines.union(stock).group_by(col("supp"))
+            .agg(F.sum(col("amount")).alias("net"),
+                 F.count(lit(1)).alias("entries"))
+            .order_by(dsl.SortOrder(col("net"), ascending=False), "supp")
+            .limit(100))
+
+
+def supplier_reach(t, dsl=_L):
+    """How many suppliers shipped a line by AIR in 1995 or hold a part
+    with fewer than 100 available (TPC-DS q14's and q49's UNION, then
+    DISTINCT): one row."""
+    F, col, lit = dsl.functions, dsl.col, dsl.lit
+    air = t["lineitem"].filter((col("l_shipmode") == "AIR")
+                               & _in_1995(dsl)) \
+        .select(col("l_suppkey").alias("supp"))
+    low = t["partsupp"].filter(col("ps_availqty") < 100) \
+        .select(col("ps_suppkey").alias("supp"))
+    return air.union(low).distinct().agg(
+        F.count(lit(1)).alias("suppliers"))
+
+
+def customer_priorities(t, dsl=_L):
+    """Per order priority, the customers who placed an order of it: a
+    DISTINCT over a long and a string (TPC-DS q1's, q41's and q95's),
+    then a count per priority: 5 rows."""
+    col = dsl.col
+    return (t["orders"].select(col("o_custkey"), col("o_orderpriority"))
+            .distinct().group_by(col("o_orderpriority")).count()
+            .order_by("o_orderpriority"))
+
+
+SET_QUERIES = {"q1_rollup": q1_rollup, "cube_orders": cube_orders,
+               "rollup_nation_year": rollup_nation_year,
+               "union_supply": union_supply,
+               "supplier_reach": supplier_reach,
+               "customer_priorities": customer_priorities}
+# how many rows the top-N set query keeps, and the column it orders by
+SET_TOP_N = {"union_supply": (100, 1)}
+
+
+# --------------------------------------------------------------------------
 # outer joins: 1992's orders and the BUILDING customers on o_custkey ==
 # c_custkey, counted as count(*), count(o_orderkey) and count(c_custkey)
 # --------------------------------------------------------------------------
@@ -1549,6 +1670,181 @@ def oracle_urgent_summary(t) -> List[tuple]:
     return [(len(np.unique(o["o_custkey"][rows])), str(_text(comment[0])),
              str(_text(comment[-1])), int(o["o_orderkey"][rows[0]]),
              int(o["o_orderkey"][rows[-1]]), len(rows))]
+
+
+def _prefix8(a: np.ndarray) -> np.ndarray:
+    """The first 8 bytes of each fixed-width byte string, as a big-endian
+    uint64 (so their order is the strings' byte order)."""
+    w = a.dtype.itemsize
+    out = np.zeros((len(a), 8), dtype=np.uint8)
+    out[:, :min(w, 8)] = np.ascontiguousarray(a).view(np.uint8).reshape(
+        len(a), w)[:, :8]
+    return out.view(">u8").ravel()
+
+
+def _codes(a: np.ndarray, labels) -> tuple:
+    """(code per row, the label of each code) of a byte-string column over
+    a known sorted vocabulary `labels` (the generator's, a few words)
+    whose first 8 bytes tell its words apart: one uint64 compare a row and
+    word, not a sort of the column."""
+    labels = np.asarray(labels)
+    keys = _prefix8(labels)
+    assert len(np.unique(keys)) == len(keys), labels
+    rows = _prefix8(a)
+    codes = np.zeros(len(a), dtype=np.int64)
+    for k in keys[1:]:
+        codes += rows >= k
+    return codes, labels
+
+
+def _grouping_set_rows(keys: List[tuple], sets: List[tuple], weights,
+                       finish) -> List[tuple]:
+    """Rows of a GROUP BY GROUPING SETS whose aggregates come from sums:
+    `keys` are (codes, labels) per key column, `sets` the kept key
+    indices of each set, `weights` the per-row columns summed per group,
+    `finish(sums, counts)` a set's output columns from its groups' sums
+    (one array per weight) and row counts.  The rows are summed once per
+    finest group (every key kept), then each set adds those up.  A
+    rolled-up key is None; rows sorted by the keys, nulls first."""
+    sizes = [len(labels) for _, labels in keys]
+    combo = np.zeros(len(keys[0][0]), dtype=np.int64)
+    for codes, labels in keys:
+        combo = combo * len(labels) + codes
+    counts = np.bincount(combo)
+    leaf = np.flatnonzero(counts)
+    leaf_sums = [np.bincount(combo, weights=w, minlength=len(counts))[leaf]
+                 for w in weights]
+    digits, rem = [], leaf
+    for size in reversed(sizes):
+        digits.append(rem % size)
+        rem = rem // size
+    digits.reverse()
+    out = []
+    for kept in sets:
+        sub = np.zeros(len(leaf), dtype=np.int64)
+        for i in kept:
+            sub = sub * sizes[i] + digits[i]
+        groups, inv = np.unique(sub, return_inverse=True)
+        first = np.zeros(len(groups), dtype=np.int64)
+        first[inv[::-1]] = np.arange(len(leaf))[::-1]
+        cols = finish([np.bincount(inv, weights=w) for w in leaf_sums],
+                      np.bincount(inv, weights=counts[leaf]).astype(
+                          np.int64))
+        for g in range(len(groups)):
+            key = tuple(_label(keys[i][1][digits[i][first[g]]])
+                        if i in kept else None for i in range(len(keys)))
+            out.append(key + tuple(c[g] for c in cols))
+    out.sort(key=lambda r: tuple((v is not None, v)
+                                 for v in r[:len(keys)]))
+    return out
+
+
+def _label(v):
+    if isinstance(v, bytes):
+        return v.decode()
+    return v.item() if isinstance(v, np.generic) else v
+
+
+def _rollup_sets(n: int) -> List[tuple]:
+    return [tuple(range(g)) for g in range(n, -1, -1)]
+
+
+def oracle_q1_rollup(t) -> List[tuple]:
+    li = t["lineitem"]
+    m = li["l_shipdate"] <= days("1998-09-02")
+    keys = [_codes(li["l_returnflag"][m], [b"A", b"N", b"R"]),
+            _codes(li["l_linestatus"][m], [b"F", b"O"])]
+    price, dsc = li["l_extendedprice"][m], li["l_discount"][m]
+    disc = price * (1.0 - dsc)
+
+    def finish(sums, n):
+        q, p, d, c, x = sums
+        return [q.tolist(), p.tolist(), d.tolist(), c.tolist(),
+                (q / n).tolist(), (p / n).tolist(), (x / n).tolist(),
+                n.tolist()]
+    return _grouping_set_rows(
+        keys, _rollup_sets(2), [li["l_quantity"][m], price, disc,
+                                disc * (1.0 + li["l_tax"][m]), dsc], finish)
+
+
+def oracle_cube_orders(t) -> List[tuple]:
+    o = t["orders"]
+    keys = [_codes(o["o_orderpriority"], np.array(PRIORITIES, dtype="S")),
+            _codes(o["o_orderstatus"], [b"F", b"O", b"P"])]
+
+    def finish(sums, n):
+        return [n.tolist(), sums[0].tolist(), (sums[0] / n).tolist()]
+    return _grouping_set_rows(keys, [(0, 1), (0,), (1,), ()],
+                              [o["o_totalprice"]], finish)
+
+
+def oracle_rollup_nation_year(t) -> List[tuple]:
+    o, c, n, r = t["orders"], t["customer"], t["nation"], t["region"]
+    nation = c["c_nationkey"][_row_of(c["c_custkey"], o["o_custkey"])]
+    by_key = np.argsort(n["n_nationkey"])
+    region_names = np.array(REGIONS, dtype="S")
+    region_of = _codes(r["r_name"][_row_of(
+        r["r_regionkey"], n["n_regionkey"][by_key])], region_names)[0]
+    years = _year(o["o_orderdate"])
+    first = int(years.min())
+    keys = [(region_of[nation], region_names),
+            (nation, n["n_name"][by_key]),
+            (years - first, np.arange(first, int(years.max()) + 1))]
+
+    def finish(sums, m):
+        return [sums[0].tolist(), m.tolist()]
+    return _grouping_set_rows(keys, _rollup_sets(3), [o["o_totalprice"]],
+                              finish)
+
+
+def _lines_1995(li) -> np.ndarray:
+    return (li["l_shipdate"] >= days("1995-01-01")) \
+        & (li["l_shipdate"] < days("1996-01-01"))
+
+
+def oracle_union_supply(t) -> List[tuple]:
+    """Every supplier's (supp, net, entries) in union_supply's order; it
+    keeps the first 100 (compare with match_set_query)."""
+    li, ps = t["lineitem"], t["partsupp"]
+    m = _lines_1995(li)
+    supp = np.concatenate([li["l_suppkey"][m], ps["ps_suppkey"]])
+    amount = np.concatenate([
+        li["l_extendedprice"][m] * (1.0 - li["l_discount"][m]),
+        -(ps["ps_supplycost"] * ps["ps_availqty"])])
+    keys, inv = np.unique(supp, return_inverse=True)
+    net = np.bincount(inv, weights=amount)
+    entries = np.bincount(inv)
+    order = np.lexsort((keys, -net))
+    return [(int(keys[i]), float(net[i]), int(entries[i])) for i in order]
+
+
+def oracle_supplier_reach(t) -> List[tuple]:
+    li, ps = t["lineitem"], t["partsupp"]
+    air = li["l_suppkey"][_lines_1995(li) & (li["l_shipmode"] == b"AIR")]
+    low = ps["ps_suppkey"][ps["ps_availqty"] < 100]
+    return [(len(np.unique(np.concatenate([air, low]))),)]
+
+
+def oracle_customer_priorities(t) -> List[tuple]:
+    o = t["orders"]
+    prio, labels = _codes(o["o_orderpriority"],
+                          np.array(PRIORITIES, dtype="S"))
+    # a (customer, priority) pair is a bit of a dense bitmap
+    seen = np.zeros((int(o["o_custkey"].max()) + 1) * len(labels), bool)
+    seen[o["o_custkey"] * len(labels) + prio] = True
+    count = seen.reshape(-1, len(labels)).sum(axis=0)
+    return [(_label(labels[i]), int(count[i]))
+            for i in np.flatnonzero(count)]
+
+
+def match_set_query(name: str, want: List[tuple],
+                    got: List[tuple]) -> bool:
+    """`got` against the oracle's rows: union_supply's first 100 under
+    top_rows_match (net amounts within 1e-9 may trade places), the rest
+    under rows_match."""
+    if name in SET_TOP_N:
+        return top_rows_match(want, got, *SET_TOP_N[name])
+    return rows_match(want, got)
 
 
 def match_agg_query(name: str, want: List[tuple],
@@ -2096,7 +2392,12 @@ ORACLES = {"q1": oracle_q1, "q6": oracle_q6, "q18_inner": oracle_q18_inner,
            "q16_distinct": oracle_q16, "q21_distinct": oracle_q21,
            "priority_migration": oracle_priority_migration,
            "segment_bounds": oracle_segment_bounds,
-           "urgent_summary": oracle_urgent_summary}
+           "urgent_summary": oracle_urgent_summary,
+           "q1_rollup": oracle_q1_rollup, "cube_orders": oracle_cube_orders,
+           "rollup_nation_year": oracle_rollup_nation_year,
+           "union_supply": oracle_union_supply,
+           "supplier_reach": oracle_supplier_reach,
+           "customer_priorities": oracle_customer_priorities}
 # how many of the oracle's rows each top-N query keeps, and the column it
 # orders by first
 TOP_N = {"q3": (10, 3), "q10": (20, 7), "q18": (100, 4), "q2": (100, 0)}

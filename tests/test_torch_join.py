@@ -7,9 +7,11 @@ its CPU backend, as the tier-1 conftest forces; the port on
 `device="cpu"`, its kernels' plain versions.  Join shapes follow
 tests/test_join.py; the outer joins are in tests/test_torch_outer_join.py,
 which uses the helpers here."""
+import os
 import random
 
 import pytest
+import torch
 
 from compare import assert_rows_equal
 from spark_rapids_tpu import types as JT
@@ -27,6 +29,21 @@ from spark_rapids_tpu_torch.exec.join import (TpuHashJoinExec,
 from spark_rapids_tpu_torch.ops.cast import Cast
 
 NO_BROADCAST = {"spark.sql.autoBroadcastJoinThreshold": "-1"}
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """Under xdist, one torch thread a worker: six workers each running an
+    intra-op pool over every core slow one another down."""
+    if not os.environ.get("PYTEST_XDIST_WORKER"):
+        yield
+        return
+    old = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(old)
+
+
 _TYPES = {"int": (JT.IntegerType, PT.IntegerType),
           "long": (JT.LongType, PT.LongType),
           "double": (JT.DoubleType, PT.DoubleType),

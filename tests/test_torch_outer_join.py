@@ -16,6 +16,9 @@ from compare import assert_rows_equal
 from test_torch_join import (NO_BROADCAST, _EMPTY_LEFT, _EMPTY_RIGHT,
                              _jax_api, _jax_rows, _no_match_right,
                              _port_api, _two_key, keyed)
+# the module fixture pinning one torch thread a xdist worker: autouse
+# here too
+from test_torch_join import _one_torch_thread  # noqa: F401
 from spark_rapids_tpu_torch import DataFrame, TpuSession
 from spark_rapids_tpu_torch.plan import logical as PL
 
