@@ -171,15 +171,40 @@ Phases, each printing a line:
      oracles, with the numbers of a phase 3 `query` line (`set_query`
      lines); union_supply must launch K1, K2 and K3, customer_priorities
      K3, and every shape phase 11 launches joins the shapes checked
-     against the plain versions.
-A `phase_seconds` line gives each phase's wall seconds.  The
+     against the plain versions;
+ 12. window functions: (a) for each frame kind (the whole partition;
+     the default frame ordered by a key with ties; ROWS from the start
+     to the current row, from the current row to the end, 2 before to 1
+     after, 3 before to 1 before) one query of every function it takes
+     (count, sum and average, min and max, text min/max where the frame
+     starts at the partition's start, first and last, and with an ORDER
+     BY row_number, rank, dense_rank, lag and lead with and without a
+     default) over ints, longs, doubles and floats with NaN, +-0.0 and
+     +-inf, dates, text and booleans, through a card session and a CPU
+     session over `window_table`'s seeded 2^20 rows in batches of 2^18
+     behind a filter, every column equal (float sums within SUM_REL_TOL
+     plus 1e-12 of the partition's |v|), each with its time on the card
+     (`window_fn` lines); (b) tpch.WINDOW_QUERIES over the resident
+     tables (`revenue_ratio`, `margin_rank`, `monthly_deviation`,
+     `running_spend`, `order_neighbors`, `top_lines` over all 2^26
+     lines, `spend_rank`) held to their numpy oracles, with the numbers
+     of a phase 3 `query` line and the plan's window execs
+     (`window_query` lines); top_lines and running_spend must launch K1,
+     K2 and K3, and every shape phase 12 launches joins the shapes
+     checked against the plain versions.
+Every phase's numpy oracles are computed first, by ORACLE_WORKERS
+forked processes that share the host tables (an `oracles` line), so no
+query is timed beside them.  A `phase_seconds` line gives each phase's
+wall seconds.  The
 second-last line is the card as nvidia-smi names it; the last is
 {"ok": true, "device": {...}}.  Any failure raises: nothing is caught,
 and the script prints no result line without a CUDA device.
 """
+import functools
 import itertools
 import json
 import math
+import multiprocessing
 import statistics
 import subprocess
 import sys
@@ -188,12 +213,13 @@ import time
 import numpy as np
 import torch
 
-from spark_rapids_tpu_torch import TpuSession, col, tpch
+from spark_rapids_tpu_torch import TpuSession, Window, col, tpch
 from spark_rapids_tpu_torch import functions as F
 from spark_rapids_tpu_torch.config import CAST_STRING_TO_FLOAT
 from spark_rapids_tpu_torch.columnar import (Column, ColumnarBatch,
                                              bucket_rows, bucket_strlen)
 from spark_rapids_tpu_torch.exec.aggregate import TpuHashAggregateExec
+from spark_rapids_tpu_torch.exec.base import ExecContext
 from spark_rapids_tpu_torch.exec.broadcast import TpuBroadcastHashJoinExec
 from spark_rapids_tpu_torch.exec.join import (TpuHashJoinExec,
                                               TpuReorderColumnsExec)
@@ -246,6 +272,25 @@ AGG_ROWS = 1 << 20         # phase 10 (a): rows, in batches of AGG_BATCH_ROWS
 AGG_BATCH_ROWS = 1 << 18
 SET_ROWS = 1 << 20         # phase 11 (a): rows, in batches of SET_BATCH_ROWS
 SET_BATCH_ROWS = 1 << 18
+# the numpy oracles, computed by this many processes before the card
+# phases (434 s one after another on the card's host at SF10), the
+# slowest queued first
+ORACLE_WORKERS = 6
+SLOW_ORACLES = ("q21", "q9", "q7", "hash_sample", "q13", "q20_any_part",
+                "q12", "rollup_nation_year", "q5", "q8", "q10", "q18")
+ORACLE_ROWS: dict = {}     # key -> (rows, seconds), see oracle_rows
+WINDOW_ROWS = 1 << 20      # phase 12 (a): rows, in batches of
+WINDOW_BATCH_ROWS = 1 << 18  # WINDOW_BATCH_ROWS
+# phase 12 (a): frame kind -> (order keys, ROWS bounds or None for the
+# default frame); "range" orders by a key with ties
+WINDOW_FRAMES = {"whole": ((), None), "range": (("g",), None),
+                 "running": (("o",), (-(1 << 62), 0)),
+                 "suffix": (("o",), (0, 1 << 62)),
+                 "bounded": (("o",), (-2, 1)),
+                 "before": (("o",), (-3, -1))}
+# phase 12 (b): the kernels each query must launch
+WINDOW_LAUNCHES = {"top_lines": ("seg_scan", "cumsum", "sort_words"),
+                   "running_spend": ("seg_scan", "cumsum", "sort_words")}
 # phase 11 (b): the kernels each query must launch
 SET_LAUNCHES = {"union_supply": ("seg_scan", "cumsum", "sort_words"),
                 "customer_priorities": ("sort_words",)}
@@ -470,6 +515,80 @@ def _oracle(name: str, tables: dict) -> list:
     return tpch.ORACLES[query](tables, *args)
 
 
+def _lineitem_oracle(name: str, tables: dict) -> list:
+    return tpch.ORACLES[name](tables["lineitem"])
+
+
+def _tables_oracle(name: str, tables: dict) -> list:
+    return tpch.ORACLES[name](tables)
+
+
+def _filter_oracle(name: str, tables: dict) -> int:
+    return tpch.oracle_string_filter(tables["orders"], name)
+
+
+def _outer_oracle(name: str, tables: dict) -> list:
+    return tpch.OUTER_JOINS[name][1](tables)
+
+
+def oracle_jobs() -> dict:
+    """Every numpy oracle the phases hold their queries to, by the key
+    oracle_rows takes: a function of the generated tables each."""
+    jobs = {n: functools.partial(_oracle, n) for n in
+            list(tpch.QUERIES) + list(tpch.JOIN_QUERIES) + list(VARIANTS)}
+    for group in (tpch.DATE_QUERIES, tpch.TEXT_QUERIES, tpch.MATH_QUERIES):
+        jobs.update({n: functools.partial(_lineitem_oracle, n)
+                     for n in group})
+    for group in (tpch.AGG_QUERIES, tpch.SET_QUERIES, tpch.WINDOW_QUERIES):
+        # q16_distinct and q21_distinct are held to phase 3's rows
+        jobs.update({n: functools.partial(_tables_oracle, n)
+                     for n in group if not n.endswith("_distinct")})
+    jobs.update({f"filter {n}": functools.partial(_filter_oracle, n)
+                 for n in tpch.STRING_FILTERS})
+    jobs.update({f"outer_join {n}": functools.partial(_outer_oracle, n)
+                 for n in tpch.OUTER_JOINS})
+    return jobs
+
+
+# what the forked oracle processes read (set just before they start)
+_POOL_TABLES: dict = {}
+_POOL_JOBS: dict = {}
+
+
+def _pool_oracle(key: str) -> tuple:
+    t0 = time.perf_counter()
+    rows = _POOL_JOBS[key](_POOL_TABLES)
+    return key, rows, time.perf_counter() - t0
+
+
+def precompute_oracles(tables: dict, workers: int = ORACLE_WORKERS) -> dict:
+    """key -> (rows, seconds) of every oracle_jobs() entry, computed in
+    `workers` forked processes that share the host tables (they only
+    read them), all before the card phases, so that no query is timed
+    beside them.  The pool is closed, its processes ended, on return."""
+    _POOL_TABLES.update(tables)
+    _POOL_JOBS.update(oracle_jobs())
+    keys = sorted(_POOL_JOBS, key=lambda k: k not in SLOW_ORACLES)
+    try:
+        with multiprocessing.get_context("fork").Pool(workers) as pool:
+            return {key: (rows, secs) for key, rows, secs in
+                    pool.imap_unordered(_pool_oracle, keys)}
+    finally:
+        _POOL_TABLES.clear()
+        _POOL_JOBS.clear()
+
+
+def oracle_rows(key: str, compute) -> tuple:
+    """(rows, seconds) of the oracle `key`: taken from ORACLE_ROWS, which
+    precompute_oracles fills in a whole run, or computed now by
+    `compute()` when a phase runs alone."""
+    if key in ORACLE_ROWS:
+        return ORACLE_ROWS.pop(key)
+    t0 = time.perf_counter()
+    rows = compute()
+    return rows, time.perf_counter() - t0
+
+
 def _matches(name: str, want: list, got: list) -> bool:
     query = VARIANTS.get(name, (name,))[0]
     if query in tpch.TOP_N:
@@ -512,9 +631,7 @@ def run_queries(tables: dict, device: str = "cuda") -> tuple:
     shapes = launched_shapes()
     for name, (ms, got, paths, (own, own_shapes), joins, mem) in \
             first.items():
-        t0 = time.perf_counter()
-        want = _oracle(name, tables)
-        oracle_s = time.perf_counter() - t0
+        want, oracle_s = oracle_rows(name, lambda: _oracle(name, tables))
         match = _matches(name, want, got)
         warm = []
         for _ in range(REPS):
@@ -829,9 +946,8 @@ def run_date_queries(li_df, lineitem: dict) -> list:
         got, df, numbers, launched = measure(lambda query=query:
                                              query(li_df))
         shapes += launched
-        t0 = time.perf_counter()
-        want = tpch.ORACLES[name](lineitem)
-        oracle_s = time.perf_counter() - t0
+        want, oracle_s = oracle_rows(
+            name, lambda: tpch.ORACLES[name](lineitem))
         match = tpch.rows_match(want, got)
         plan = df.session.last_plan
         print("date_query " + json.dumps({
@@ -959,9 +1075,8 @@ def _text_query(name: str, df_in, lineitem: dict) -> list:
     resident = torch.cuda.memory_allocated()
     got, df, numbers, launched = measure(
         lambda: tpch.TEXT_QUERIES[name](df_in))
-    t0 = time.perf_counter()
-    want = tpch.ORACLES[name](lineitem)
-    oracle_s = time.perf_counter() - t0
+    want, oracle_s = oracle_rows(name,
+                                 lambda: tpch.ORACLES[name](lineitem))
     match = tpch.rows_match(want, got)
     plan = df.session.last_plan
     print("text_query " + json.dumps({
@@ -1173,9 +1288,8 @@ def run_math_queries(li_df, lineitem: dict) -> list:
         got, df, numbers, launched = measure(lambda query=query:
                                              query(li_df))
         shapes += launched
-        t0 = time.perf_counter()
-        want = tpch.ORACLES[name](lineitem)
-        oracle_s = time.perf_counter() - t0
+        want, oracle_s = oracle_rows(
+            name, lambda: tpch.ORACLES[name](lineitem))
         match = tpch.match_math_query(name, want, got)
         plan = df.session.last_plan
         print("math_query " + json.dumps({
@@ -1335,9 +1449,8 @@ def run_agg_queries(dfs: dict, tables: dict, rows: dict) -> list:
                                              query(dfs))
         shapes += launched
         base = name.split("_")[0] if name.endswith("_distinct") else None
-        t0 = time.perf_counter()
-        want = rows[base] if base else tpch.ORACLES[name](tables)
-        oracle_s = time.perf_counter() - t0
+        want, oracle_s = (rows[base], 0.0) if base else oracle_rows(
+            name, lambda: tpch.ORACLES[name](tables))
         match = tpch.match_agg_query(name, want, got)
         plan = df.session.last_plan
         print("agg_query " + json.dumps({
@@ -1494,9 +1607,8 @@ def run_set_queries(dfs: dict, tables: dict) -> list:
         got, df, numbers, launched = measure(lambda query=query:
                                              query(dfs))
         shapes += launched
-        t0 = time.perf_counter()
-        want = tpch.ORACLES[name](tables)
-        oracle_s = time.perf_counter() - t0
+        want, oracle_s = oracle_rows(name,
+                                     lambda: tpch.ORACLES[name](tables))
         match = tpch.match_set_query(name, want, got)
         plan = df.session.last_plan
         print("set_query " + json.dumps({
@@ -1510,6 +1622,227 @@ def run_set_queries(dfs: dict, tables: dict) -> list:
             raise AssertionError(f"{name} disagrees with its numpy oracle "
                                  f"or is empty: {got[:3]} vs {want[:3]}")
         idle = [k for k in SET_LAUNCHES.get(name, ())
+                if not numbers["launches"][k]]
+        if idle:
+            raise AssertionError(f"{name} did not launch {idle}: "
+                                 f"{numbers['launches']}")
+    return shapes
+
+
+def window_table(n: int, seed: int = 42) -> tuple:
+    """Phase 12 (a)'s columns (numpy, nulls masked) and schema: `k` a
+    partition key of 4096 values (~256 rows each), `o` a unique order
+    key, `g` an order key of 8 values (ties), values of every type with
+    their edges (`i` int and `l` long extremes; `x` double and `f` float
+    with NaN, +-0.0 and +-inf; `d` dates; `s` text of 0-16 bytes, empty
+    and multi-byte among it; `b` booleans), `keep` a filter.  About 5%
+    of k, g and every value is null."""
+    rng = np.random.default_rng([seed, 12])
+
+    def edged(values, edges):
+        pick = rng.random(n) < 0.05
+        values[pick] = rng.choice(np.asarray(edges, values.dtype),
+                                  int(pick.sum()))
+        return values
+    special = [np.nan, 0.0, -0.0, np.inf, -np.inf]
+    words = np.array([b"", b"a", b"ab", b"abcdefghi", b"\xc3\xa9",
+                      b"\xe2\x82\xac", b"zz", b"b" * 16,
+                      b"\xe4\xb8\xad\xe6\x96\x87"])
+    cols = {"k": rng.integers(0, 4096, n, dtype=np.int32),
+            "o": rng.permutation(n).astype(np.int64),
+            "g": rng.integers(0, 8, n, dtype=np.int32),
+            "i": edged(rng.integers(-1000, 1000, n, dtype=np.int32),
+                       [0, -1, (1 << 31) - 1, -(1 << 31)]),
+            "l": edged(rng.integers(-10**6, 10**6, n),
+                       [0, -1, (1 << 63) - 1, -(1 << 63)]),
+            "x": edged(np.round(rng.uniform(-1e3, 1e3, n), 3), special),
+            "f": edged(np.round(rng.uniform(-1e3, 1e3, n), 2)
+                       .astype(np.float32), special),
+            "d": rng.integers(10_000, 10_400, n, dtype=np.int32),
+            "s": words[rng.integers(0, len(words), n)],
+            "b": rng.random(n) < 0.5,
+            "keep": rng.random(n) < 0.9}
+    types = {"k": IntegerType, "o": LongType, "g": IntegerType,
+             "i": IntegerType, "l": LongType, "x": DoubleType,
+             "f": FloatType, "d": DateType, "s": StringType,
+             "b": BooleanType, "keep": BooleanType}
+    for c in cols:
+        if c not in ("o", "keep"):
+            cols[c] = np.ma.masked_array(cols[c], mask=rng.random(n) < 0.05)
+    return cols, Schema([StructField(c, types[c]) for c in cols])
+
+
+def window_columns(frame: str) -> list:
+    """(name, window expression) of every function a frame kind takes,
+    over every type that function takes: count, sum and average, min and
+    max (text only where the frame starts at the partition's start),
+    first and last, and with an ORDER BY the ranks, lag and lead."""
+    order, rows = WINDOW_FRAMES[frame]
+    w = Window.partition_by(col("k"))
+    if order:
+        w = w.order_by(*[col(c) for c in order])
+    if rows:
+        w = w.rows_between(*rows)
+    out = [("n", F.count(F.lit(1)).over(w)),
+           ("nx", F.count(col("x")).over(w)),
+           ("ns", F.count(col("s")).over(w))]
+    out += [(f"sum_{c}", F.sum(col(c)).over(w)) for c in "ilxf"]
+    out += [(f"avg_{c}", F.avg(col(c)).over(w)) for c in "ixf"]
+    minmax = "ilxfdb" + ("s" if rows is None or rows[0] < -(1 << 61)
+                         else "")
+    out += [(f"{fn.__name__}_{c}", fn(col(c)).over(w))
+            for c in minmax for fn in (F.min, F.max)]
+    out += [(f"{fn.__name__}_{c}", fn(col(c)).over(w))
+            for c in "xsdb" for fn in (F.first, F.last)]
+    if order:
+        out += [("rn", F.row_number().over(w)), ("rk", F.rank().over(w)),
+                ("drk", F.dense_rank().over(w)),
+                ("lag_i", F.lag(col("i"), 1).over(w)),
+                ("lag_x", F.lag(col("x"), 2, -1.5).over(w)),
+                ("lead_s", F.lead(col("s"), 1, "past the last row")
+                 .over(w)),
+                ("lead_d", F.lead(col("d"), 3).over(w)),
+                ("lag_b", F.lag(col("b"), 1, True).over(w))]
+    return out
+
+
+def window_query(frame: str):
+    """Phase 12 (a)'s query of one frame kind over the kept rows: the
+    keys, every function, and per partition the sum of the finite |x|
+    and |f| (`floor_x`, `floor_f`), which bound a float sum's rounding
+    (check_windows)."""
+    def finite_abs(c):
+        return F.when(F.abs(col(c)) < 1e308, F.abs(col(c))).otherwise(0.0)
+    part = Window.partition_by(col("k"))
+
+    def q(df):
+        return df.filter(col("keep")).select(
+            col("k"), col("o"),
+            *[e.alias(n) for n, e in window_columns(frame)],
+            F.sum(finite_abs("x")).over(part).alias("floor_x"),
+            F.sum(finite_abs("f")).over(part).alias("floor_f"))
+    return q
+
+
+def window_result(df) -> dict:
+    """The live rows of a DataFrame's device result, column name ->
+    (data, valid, lengths or None) on the host, read from the batch the
+    plan leaves on its device (no text decode: a 2^20-row result carries
+    five text columns)."""
+    ctx = ExecContext(df.session.conf, df.session.device)
+    (batch,) = list(df.physical_plan().execute(ctx))
+    rows = batch.live_rows()
+    return {f.name: (c.data[rows].cpu(), c.valid[rows].cpu(),
+                     None if c.lengths is None else c.lengths[rows].cpu())
+            for f, c in zip(batch.schema, batch.columns)}
+
+
+def windows_disagree(want: dict, got: dict) -> list:
+    """The columns of two window_result dicts that differ: valid flags
+    equal, and on the valid rows the values exactly equal (NaN equal to
+    NaN; text by its length and the bytes within it), a float within
+    SUM_REL_TOL of float64 of its value plus 1e-12 times the partition's
+    sum of finite |x| or |f|, whichever is larger: a frame's sum is a
+    difference of two running sums, so it carries its whole segment's
+    rounding."""
+    floor = 1e-12 * torch.maximum(want["floor_x"][0], want["floor_f"][0])
+    bad = []
+    for name, (wd, wv, wl) in want.items():
+        gd, gv, gl = got[name]
+        if not torch.equal(wv, gv) or wd.shape[1:] != gd.shape[1:]:
+            bad.append(name)
+            continue
+        if wl is not None:
+            inside = torch.arange(wd.shape[1])[None, :] < wl[:, None]
+            ok = (wl == gl) & torch.all((wd == gd) | ~inside, dim=1)
+        elif wd.is_floating_point():
+            wd, gd = wd.double(), gd.double()
+            ok = (torch.isnan(wd) & torch.isnan(gd)) | (wd == gd) | (
+                (wd - gd).abs() <= SUM_REL_TOL[torch.float64] * wd.abs()
+                + floor)
+        else:
+            ok = wd == gd
+        if not bool(torch.all(ok | ~wv)):
+            bad.append(name)
+    return bad
+
+
+def check_windows(device: str = "cuda") -> list:
+    """Phase 12 (a): each frame kind's `window_query` through a TpuSession
+    on the card and one on the CPU over window_table(WINDOW_ROWS), read
+    in batches of WINDOW_BATCH_ROWS (the window's coalesce concatenates
+    them), every column held by windows_disagree; one `window_fn` line
+    each, with the card's time from the scan to the result's device
+    batch.  Returns the (kernel, shape) pairs the card launched."""
+    cols, schema = window_table(WINDOW_ROWS)
+    conf = dict(CONF, **{"spark.rapids.sql.reader.batchSizeRows":
+                         str(WINDOW_BATCH_ROWS)})
+    frames = {dev: TpuSession(dict(conf), device=dev)
+              .from_numpy(cols, schema) for dev in (device, "cpu")}
+    shapes = []
+    for frame in WINDOW_FRAMES:
+        q = window_query(frame)
+        K.reset_launches()
+        got = window_result(q(frames[device]))
+        launches = K.launch_counts()
+        shapes += launched_shapes()
+        want = window_result(q(frames["cpu"]))
+        bad = windows_disagree(want, got)
+        print("window_fn " + json.dumps({
+            "frame": frame, "rows": len(got["k"][0]), "columns": len(got),
+            "matches_cpu": not bad, "disagree": bad,
+            "ms": time_ms(lambda: list(q(frames[device]).physical_plan()
+                                       .execute(ExecContext(
+                                           frames[device].session.conf,
+                                           frames[device].session.device))),
+                          3),
+            "launches": launches}), flush=True)
+        if bad or not len(got["k"][0]):
+            raise AssertionError(f"window frame {frame}: columns {bad} on "
+                                 "the card differ from the CPU")
+    return shapes
+
+
+def _window_nodes(node) -> list:
+    """Each window exec of the plan, depth first: its functions, and its
+    partition and order key counts."""
+    out = []
+    if type(node).__name__ == "TpuWindowExec":
+        out.append({"funcs": [f.kind for f in node.funcs],
+                    "partition_by": len(node.part_exprs),
+                    "order_by": len(node.order_exprs)})
+    for c in node.children:
+        out += _window_nodes(c)
+    return out
+
+
+def run_window_queries(dfs: dict, tables: dict) -> list:
+    """Phase 12 (b): each of tpch.WINDOW_QUERIES over the resident tables
+    (`measure`), held to its numpy oracle, with the numbers of a phase 3
+    `query` line and the plan's window execs; each query of
+    WINDOW_LAUNCHES must launch its kernels.  Returns the (kernel, shape)
+    pairs they launched."""
+    shapes = []
+    for name, query in tpch.WINDOW_QUERIES.items():
+        resident = torch.cuda.memory_allocated()
+        got, df, numbers, launched = measure(lambda query=query:
+                                             query(dfs))
+        shapes += launched
+        want, oracle_s = oracle_rows(name,
+                                     lambda: tpch.ORACLES[name](tables))
+        match = tpch.match_window_query(name, want, got)
+        plan = df.session.last_plan
+        print("window_query " + json.dumps({
+            "query": name, "rows": len(got), "matches_oracle": match,
+            "oracle_s": oracle_s, "joins": join_nodes(plan),
+            "windows": _window_nodes(plan),
+            "agg_update_paths": _update_paths(plan),
+            "resident_device_bytes": resident, **numbers,
+            "result": [[str(v) for v in r] for r in got[:4]]}), flush=True)
+        if not match or not got:
+            raise AssertionError(f"{name} disagrees with its numpy oracle "
+                                 f"or is empty: {got[:3]} vs {want[:3]}")
+        idle = [k for k in WINDOW_LAUNCHES.get(name, ())
                 if not numbers["launches"][k]]
         if idle:
             raise AssertionError(f"{name} did not launch {idle}: "
@@ -1575,7 +1908,8 @@ def run_string_filters(orders_df, orders: dict) -> list:
         got, _, numbers, launched = measure(
             lambda name=name: tpch.string_filter(orders_df, name))
         shapes += launched
-        want = tpch.oracle_string_filter(orders, name)
+        want = oracle_rows(f"filter {name}", lambda: (
+            tpch.oracle_string_filter(orders, name)))[0]
         print("filter " + json.dumps({"filter": name, "count": got,
                                       "oracle": want, **numbers}),
               flush=True)
@@ -1594,7 +1928,8 @@ def run_outer_joins(dfs: dict, tables: dict) -> list:
         got, df, numbers, launched = measure(lambda query=query: query(dfs))
         shapes += launched
         joins = join_nodes(df.session.last_plan)
-        want = oracle(tables)
+        want = oracle_rows(f"outer_join {name}",
+                           lambda: oracle(tables))[0]
         print("outer_join " + json.dumps({
             "join": name, "counts": got, "oracle": want, "joins": joins,
             **numbers}), flush=True)
@@ -1684,6 +2019,12 @@ def main() -> int:
     print(f"tables: sf={SF}, generated on the host in "
           f"{time.perf_counter() - t0:.3f} s", flush=True)
     ends.append(("build and tables", time.perf_counter()))
+    ORACLE_ROWS.update(precompute_oracles(tables))
+    print(f"oracles: {len(ORACLE_ROWS)} computed by {ORACLE_WORKERS} "
+          f"processes in {time.perf_counter() - ends[-1][1]:.3f} s, "
+          f"{sum(t for _, t in ORACLE_ROWS.values()):.3f} s of theirs",
+          flush=True)
+    ends.append(("numpy oracles", time.perf_counter()))
 
     gen = torch.Generator(device="cuda").manual_seed(42)
     dev = torch.device("cuda")
@@ -1720,14 +2061,19 @@ def main() -> int:
                  time.perf_counter()))
     shapes += check_set_ops()
     shapes += run_set_queries(dfs, tables)
-    del dfs
     torch.cuda.empty_cache()
     ends.append(("union, distinct, rollup and cube", time.perf_counter()))
+    shapes += check_windows()
+    shapes += run_window_queries(dfs, tables)
+    del dfs
+    torch.cuda.empty_cache()
+    ends.append(("window functions", time.perf_counter()))
     shapes = list(dict.fromkeys(shapes))
     rest = [ks for ks in shapes if ks not in checked]
     print(f"kernels: {len(shapes) - len(rest)} of the {len(shapes)} shapes "
           f"launched by the queries, filters, outer joins, date, text, "
-          f"math, aggregate and set queries were checked in phase 2; "
+          f"math, aggregate, set and window queries were checked in phase "
+          f"2; "
           f"checking "
           f"the other "
           f"{len(rest)}", flush=True)

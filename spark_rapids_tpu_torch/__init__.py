@@ -6,7 +6,7 @@ imports torch and nothing of JAX or of the JAX package.  See README.md
 ("The PyTorch/CUDA port") for what the slice covers.
 """
 from .engine import DataFrame, GroupedData, TpuSession
-from .plan.logical import SortOrder, col, functions, lit
+from .plan.logical import SortOrder, Window, col, functions, lit
 
-__all__ = ["DataFrame", "GroupedData", "SortOrder", "TpuSession", "col",
-           "functions", "lit"]
+__all__ = ["DataFrame", "GroupedData", "SortOrder", "TpuSession", "Window",
+           "col", "functions", "lit"]

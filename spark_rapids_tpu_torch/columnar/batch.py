@@ -64,6 +64,16 @@ class ColumnarBatch:
             return self.known_rows
         return int(self.num_rows())
 
+    def device_size_bytes(self) -> int:
+        """Bytes of the batch's tensors at its capacity (the coalesce's
+        size, as the JAX package counts it)."""
+        total = self.sel.numel()
+        for c in self.columns:
+            total += c.data.numel() * c.data.element_size() + c.valid.numel()
+            if c.lengths is not None:
+                total += c.lengths.numel() * 4
+        return total
+
     @property
     def num_cols(self) -> int:
         return len(self.columns)

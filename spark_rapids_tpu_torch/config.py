@@ -63,6 +63,10 @@ class ConfEntry:
         _REGISTRY[key] = self
 
 
+BATCH_SIZE_BYTES = ConfEntry(
+    "spark.rapids.sql.batchSizeBytes", 2 << 30,
+    "Target size in bytes for TPU columnar batches; operators coalesce "
+    "smaller batches up to this goal (reference default 2GiB).", to_bytes)
 MAX_READER_BATCH_SIZE_ROWS = ConfEntry(
     "spark.rapids.sql.reader.batchSizeRows", 2 ** 31 - 1,
     "Soft cap on rows per batch produced by the in-memory scan.", int)

@@ -1,6 +1,6 @@
 """Session and DataFrame API of the port (the slice of
 spark_rapids_tpu/engine.py that its TPC-H queries use, with union,
-distinct, rollup and cube).
+distinct, rollup, cube and window expressions).
 
     s = TpuSession({"spark.rapids.sql.variableFloatAgg.enabled": "true"})
     df = s.from_numpy({"k": np.array([1, 2, 1]), "v": np.array([.5, 1., 2.])})
@@ -111,9 +111,47 @@ class DataFrame:
                 else c if isinstance(c, ColumnExpr) else lit(c)
                 for c in cols]
 
+    def _project(self, exprs: List[ColumnExpr]) -> "DataFrame":
+        """A projection; its window expressions, nested ones too (e.g.
+        `sum(v).over(w) + 1`), are lifted into LogicalWindow nodes beneath
+        it, each replaced by a column reference, as Spark's
+        ExtractWindowExpressions does.  An expression without a name is
+        called `_w<n>`.  One node per spec group (`WindowSpec._group_key`),
+        the first group's lowest."""
+        win: List[ColumnExpr] = []
+
+        def extract(e):
+            if not isinstance(e, ColumnExpr):
+                return e
+            if e.op == "WindowExpr":
+                if e._alias is None:
+                    e = e.alias(f"_w{len(win)}")
+                win.append(e)
+                return col(e.output_name)
+
+            def walk(a):
+                if isinstance(a, ColumnExpr):
+                    return extract(a)
+                if isinstance(a, (list, tuple)):
+                    return type(a)(walk(x) for x in a)
+                return a
+            return ColumnExpr(e.op, tuple(walk(a) for a in e.args),
+                              alias=e._alias)
+
+        rewritten = [extract(e) for e in exprs]
+        if not win:
+            return DataFrame(self.session, L.LogicalProject(exprs, self.plan))
+        groups: Dict[tuple, tuple] = {}
+        for e in win:
+            spec = e.args[1]
+            groups.setdefault(spec._group_key(), (spec, []))[1].append(e)
+        child = self.plan
+        for spec, es in groups.values():
+            child = L.LogicalWindow(es, spec.parts, spec.orders, child)
+        return DataFrame(self.session, L.LogicalProject(rewritten, child))
+
     def select(self, *cols) -> "DataFrame":
-        return DataFrame(self.session,
-                         L.LogicalProject(self._wrap_cols(cols), self.plan))
+        return self._project(self._wrap_cols(cols))
 
     def with_column(self, name: str, expr: ColumnExpr) -> "DataFrame":
         exprs = [col(n) for n in self.schema.names if n != name]

@@ -1,7 +1,7 @@
 """Basic operators: the in-memory scan, project, filter, limit, the
-coalesce of a stream into one batch, union, the expand of rollup and
-cube, and the device-to-host edge (port of the device half of
-spark_rapids_tpu/exec/basic.py).
+coalesce of a stream into one batch or into batches of a target size,
+union, the expand of rollup and cube, and the device-to-host edge (port
+of the device half of spark_rapids_tpu/exec/basic.py).
 
 Project and filter move no data: filter ANDs into the batch's selection
 mask.  Whole-stage fusion does not exist in the port yet; each operator
@@ -15,7 +15,8 @@ import numpy as np
 import torch
 
 from ..columnar import Column, ColumnarBatch, bucket_rows, concat_batches
-from ..config import MAX_READER_BATCH_SIZE_ROWS, SORT_PACKED_ENABLED
+from ..config import (BATCH_SIZE_BYTES, MAX_READER_BATCH_SIZE_ROWS,
+                      SORT_PACKED_ENABLED)
 from ..ops import expressions as E
 from ..types import Schema, StructField
 from .base import ExecContext, ExecNode, map_batches
@@ -139,12 +140,15 @@ class TpuGlobalLimitExec(TpuLocalLimitExec):
 
 
 class TpuCoalesceBatchesExec(ExecNode):
-    """Every batch of the child as one batch, its live rows in order (the
-    "single" goal of the JAX package's exec; its "target" goal is not
-    ported).  The planner puts one under an aggregate that dedups a
-    distinct child, whose update must see every row at once."""
+    """The child's batches concatenated, live rows in order, to a goal:
+    "single" yields one batch of every row (the planner puts one under an
+    aggregate that dedups a distinct child, whose update must see every
+    row at once); "target" concatenates batches while their bytes stay
+    within `spark.rapids.sql.batchSizeBytes` (under a window)."""
 
-    goal = "single"
+    def __init__(self, child: ExecNode, goal: str = "single"):
+        super().__init__(child)
+        self.goal = goal
 
     @property
     def schema(self):
@@ -152,14 +156,29 @@ class TpuCoalesceBatchesExec(ExecNode):
 
     def execute(self, ctx):
         packed = ctx.conf.get(SORT_PACKED_ENABLED)
-        batches = list(self.children[0].execute(ctx))
-        if not batches:
-            return
-        # held in a list, so that this frame drops it once it is yielded
-        out = [batches[0].compact(packed) if len(batches) == 1
-               else concat_batches(batches, packed)]
-        del batches
-        yield out.pop()
+        target = ctx.conf.get(BATCH_SIZE_BYTES)
+        pending: List[ColumnarBatch] = []
+        pending_bytes = 0
+        for batch in self.children[0].execute(ctx):
+            size = batch.device_size_bytes()
+            if self.goal != "single" and pending \
+                    and pending_bytes + size > target:
+                yield self._flush(pending, packed)
+                pending, pending_bytes = [], 0
+            pending.append(batch)
+            pending_bytes += size
+            del batch
+        if pending:
+            yield self._flush(pending, packed)
+
+    @staticmethod
+    def _flush(pending: List[ColumnarBatch], packed: bool) -> ColumnarBatch:
+        # the list is emptied here, so that no frame holds a batch once
+        # its concatenation is yielded
+        out = (pending[0].compact(packed) if len(pending) == 1
+               else concat_batches(pending, packed))
+        pending.clear()
+        return out
 
 
 class TpuUnionExec(ExecNode):

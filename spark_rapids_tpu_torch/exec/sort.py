@@ -113,12 +113,12 @@ def column_sort_keys(c: Column, ascending: bool) -> List[torch.Tensor]:
     return keys
 
 
-def packed_sort_components(batch: ColumnarBatch, cols: Sequence[Column],
+def packed_sort_components(live: torch.Tensor, cols: Sequence[Column],
                            ascending: Sequence[bool],
                            nulls_first: Sequence[bool]):
     """Components of the whole sort spec: live flag, then per column its
     null rank and keys."""
-    comps = [((~batch.sel).long(), 1)]
+    comps = [((~live).long(), 1)]
     for c, asc, nf in zip(cols, ascending, nulls_first):
         null_rank = torch.where(c.valid, 1 if nf else 0, 0 if nf else 1)
         comps.append((null_rank.long(), 1))
@@ -132,16 +132,24 @@ def sort_order(batch: ColumnarBatch, exprs: Sequence[E.Expression],
     """Stable permutation ordering live rows by the sort spec, dead rows
     last.  `nulls_first` is the effective placement.  The packed path
     (default) and the lexsort path give the same permutation."""
-    cols = [e.eval(batch) for e in exprs]
-    cap = batch.capacity
+    return order_of_columns(batch.sel, [e.eval(batch) for e in exprs],
+                            ascending, nulls_first, packed)
+
+
+def order_of_columns(live: torch.Tensor, cols: Sequence[Column],
+                     ascending: Sequence[bool], nulls_first: Sequence[bool],
+                     packed: bool = True) -> torch.Tensor:
+    """sort_order's permutation from the spec's evaluated columns and the
+    live-row mask."""
+    cap = live.shape[0]
     if packed and cap & (cap - 1) == 0:
-        comps = packed_sort_components(batch, cols, ascending, nulls_first)
+        comps = packed_sort_components(live, cols, ascending, nulls_first)
         total = sum(w for _, w in comps)
         npasses = PS.plan_passes(total, cap)
         # a very wide spec can need more radix passes than lexsort keys
         if npasses <= max(8, len(comps)):
             return PS.packed_argsort(comps, cap)
-    major = [(~batch.sel).long()]
+    major = [(~live).long()]
     for c, asc, nf in zip(cols, ascending, nulls_first):
         major.append(torch.where(c.valid, 1, 0 if nf else 2).long())
         major.extend(column_sort_keys(c, asc))

@@ -17,8 +17,10 @@ the JAX package either: they are built by op name), the math functions
 `hypot`, `cot`, `log_base`, `asinh`, `acosh` and `atanh`, and `hash`
 (the other math classes and the bitwise ones have no function in the JAX
 package either: `ColumnExpr("Sin", (e,))`, `ColumnExpr("ShiftLeft", (e,
-n))`), `SortOrder`, and the scan, filter, project, aggregate, join, sort,
-limit, union, distinct and expand nodes.  Op names
+n))`), the window functions `row_number`, `rank`, `dense_rank`, `lag`
+and `lead` with `ColumnExpr.over`, `WindowSpec` and `Window`,
+`SortOrder`, and the scan, filter, project, aggregate, join, sort,
+limit, union, distinct, expand and window nodes.  Op names
 and argument layouts are the JAX package's, so one ColumnExpr tree means
 the same to both.
 """
@@ -147,6 +149,17 @@ class ColumnExpr:
     def like(self, pattern: str) -> "ColumnExpr":
         return ColumnExpr("Like", (self, _wrap(pattern)))
 
+    def asc(self) -> "SortOrder":
+        return SortOrder(self, ascending=True)
+
+    def desc(self) -> "SortOrder":
+        return SortOrder(self, ascending=False)
+
+    def over(self, spec: "WindowSpec") -> "ColumnExpr":
+        """An aggregate or ranking call as a window expression over `spec`
+        (pyspark's Column.over); its args are (call, spec)."""
+        return ColumnExpr("WindowExpr", (self, spec), alias=self._alias)
+
     @property
     def output_name(self) -> str:
         if self._alias:
@@ -237,6 +250,29 @@ class functions:
         """Spark's exact `percentile`; its args are (child, False, p).
         The planner refuses it (plan/physical.py)."""
         return ColumnExpr("Percentile", (_wrap(e), False, float(p)))
+
+    @staticmethod
+    def row_number():
+        return ColumnExpr("RowNumber", ())
+
+    @staticmethod
+    def rank():
+        return ColumnExpr("Rank", ())
+
+    @staticmethod
+    def dense_rank():
+        return ColumnExpr("DenseRank", ())
+
+    @staticmethod
+    def lag(e, offset: int = 1, default=None):
+        """The value `offset` rows before, within the partition; else
+        `default` (null when None).  Its args are (child, offset,
+        default)."""
+        return ColumnExpr("Lag", (_wrap(e), offset, default))
+
+    @staticmethod
+    def lead(e, offset: int = 1, default=None):
+        return ColumnExpr("Lead", (_wrap(e), offset, default))
 
     @staticmethod
     def when(cond, value):
@@ -380,6 +416,65 @@ class functions:
         return ColumnExpr("NextDay", (_wrap(e), _wrap(day_of_week)))
 
 
+class WindowSpec:
+    """A window's partition keys, order and frame (pyspark's WindowSpec).
+    `frame` is None (Spark's default: the whole partition without an
+    ORDER BY, else from its start to the current row's last peer) or
+    ("rows", start, end)."""
+
+    def __init__(self, parts=(), orders=(), frame=None):
+        self.parts = list(parts)
+        self.orders = list(orders)
+        self.frame = frame
+
+    def partition_by(self, *cols) -> "WindowSpec":
+        return WindowSpec([c if isinstance(c, ColumnExpr) else col(c)
+                           for c in cols], self.orders, self.frame)
+
+    partitionBy = partition_by
+
+    def order_by(self, *orders) -> "WindowSpec":
+        os = [o if isinstance(o, SortOrder)
+              else SortOrder(col(o) if isinstance(o, str) else o)
+              for o in orders]
+        return WindowSpec(self.parts, os, self.frame)
+
+    orderBy = order_by
+
+    def rows_between(self, start: int, end: int) -> "WindowSpec":
+        return WindowSpec(self.parts, self.orders,
+                          ("rows", int(start), int(end)))
+
+    rowsBetween = rows_between
+
+    def _group_key(self):
+        """Specs with the same partition and order share one window node
+        (their frames may differ)."""
+        return (tuple(repr(c) for c in self.parts),
+                tuple((repr(o.child), o.ascending, o.effective_nulls_first)
+                      for o in self.orders))
+
+
+class Window:
+    """pyspark.sql.Window's namespace."""
+
+    unboundedPreceding = unbounded_preceding = -(1 << 62)
+    unboundedFollowing = unbounded_following = (1 << 62)
+    currentRow = current_row = 0
+
+    @staticmethod
+    def partition_by(*cols) -> WindowSpec:
+        return WindowSpec().partition_by(*cols)
+
+    partitionBy = partition_by
+
+    @staticmethod
+    def order_by(*orders) -> WindowSpec:
+        return WindowSpec().order_by(*orders)
+
+    orderBy = order_by
+
+
 class WhenBuilder(ColumnExpr):
     """`when(c, v).when(c2, v2).otherwise(v3)`: a CaseWhen whose args are
     (((cond, value), ...), otherwise or None)."""
@@ -480,4 +575,17 @@ class LogicalExpand(LogicalPlan):
     def __init__(self, projections: Sequence[Sequence[ColumnExpr]],
                  child: LogicalPlan):
         self.projections = [list(p) for p in projections]
+        self.children = (child,)
+
+
+class LogicalWindow(LogicalPlan):
+    """The window expressions of one (partition, order) spec group over
+    the child: every child column, then one column per expression."""
+
+    def __init__(self, window_exprs: Sequence[ColumnExpr],
+                 partition_by: Sequence[ColumnExpr],
+                 order_by: Sequence[SortOrder], child: LogicalPlan):
+        self.window_exprs = list(window_exprs)
+        self.partition_by = list(partition_by)
+        self.order_by = list(order_by)
         self.children = (child,)

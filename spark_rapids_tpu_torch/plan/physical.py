@@ -15,8 +15,13 @@ double without castStringToFloat), and an aggregate list it sends there
 aggregate that dedups a distinct child reads its input through a
 TpuCoalesceBatchesExec: its update must see every row in one batch.
 A distinct is a hash aggregate over every column with no aggregate
-expression, as Spark plans it.  The session prunes the scans' columns
-first (plan/pushdown.py).
+expression, as Spark plans it.  A window node becomes a TpuWindowExec
+over a TpuCoalesceBatchesExec with the "target" goal (the JAX package's
+insert_coalesce); a window function both packages refuse raises
+AnalysisError, and one the JAX package sends to its CPU executor (a
+bounded Min/Max frame wider than MAX_BOUNDED_MINMAX_WIDTH rows, a string
+Min/Max whose frame start is bounded) NotImplementedError.  The session
+prunes the scans' columns first (plan/pushdown.py).
 
 A join is planned by the JAX package's rules (its plan/physical.py), so
 both packages choose the same exec and the same build side:
@@ -36,11 +41,11 @@ both packages choose the same exec and the same build side:
     unless `spark.rapids.sql.tpu.join.partitioned.enabled` is false, and
     builds the whole right side as one batch.
 Estimates are the JAX package's: rows from the scans (kept through row-
-local nodes, a limit's n, one row for a global aggregate, the larger
-side for a join, the left side for semi/anti, a distinct's child's, the
-sum of a union's children, an expand's child's times its projections)
-times the output schema's width (strings at 32 bytes); a scan's bytes
-are its table's.
+local nodes and windows, a limit's n, one row for a global aggregate,
+the larger side for a join, the left side for semi/anti, a distinct's
+child's, the sum of a union's children, an expand's child's times its
+projections) times the output schema's width (strings at 32 bytes); a
+scan's bytes are its table's.
 """
 from __future__ import annotations
 
@@ -58,12 +63,14 @@ from ..exec.basic import (TpuCoalesceBatchesExec, TpuExpandExec,
 from ..exec.broadcast import TpuBroadcastExchangeExec, TpuBroadcastHashJoinExec
 from ..exec.join import TpuHashJoinExec, TpuReorderColumnsExec, joined_schema
 from ..exec.sort import TpuSortExec
+from ..exec.window import TpuWindowExec
 from ..ops.aggregates import AggregateExpression
 from ..ops.cast import Cast
 from ..ops.expressions import Expression
+from ..ops.windows import WindowUnsupported, resolve_window_func
 from ..types import Schema, StringType, StructField, TimestampType
 from . import logical as L
-from .analysis import resolve, resolve_join
+from .analysis import AnalysisError, resolve, resolve_join
 
 
 def _resolved(ce: L.ColumnExpr, schema: Schema, conf: TpuConf
@@ -113,6 +120,11 @@ def plan_schema(plan: L.LogicalPlan, conf: TpuConf) -> Schema:
                  else plan.grouping + plan.aggregates)
         return Schema([StructField(ce.output_name, resolve(ce, child).dtype)
                        for ce in exprs])
+    if isinstance(plan, L.LogicalWindow):
+        child = plan_schema(plan.children[0], conf)
+        return Schema(list(child.fields)
+                      + [StructField(f.name, f.dtype)
+                         for f in window_funcs(plan, child, device=False)])
     if isinstance(plan, L.LogicalJoin):
         ls = plan_schema(plan.children[0], conf)
         rs = plan_schema(plan.children[1], conf)
@@ -168,6 +180,51 @@ def _aggregate(plan: L.LogicalAggregate, child: ExecNode,
     return agg
 
 
+def window_funcs(plan: L.LogicalWindow, schema: Schema,
+                 device: bool = True) -> list:
+    """The window node's functions resolved against its child's schema
+    (plan/tagging.py's `_tag_window`): AnalysisError where both packages
+    refuse one; with `device`, NotImplementedError where the JAX package
+    runs it on its CPU executor, which is not ported."""
+    def resolved(on_device):
+        funcs = []
+        for ce in plan.window_exprs:
+            func_ce, spec = ce.args
+            f = resolve_window_func(func_ce, spec, schema, resolve,
+                                    device=on_device)
+            f.name = ce.output_name
+            funcs.append(f)
+        return funcs
+    try:
+        return resolved(device)
+    except WindowUnsupported as e:
+        try:
+            resolved(False)
+        except WindowUnsupported as e2:
+            raise AnalysisError(f"window: {e2}") from e2
+        raise NotImplementedError(
+            f"window: {e}: the JAX package runs this window on its CPU "
+            "executor, which is not ported") from e
+
+
+def _window(plan: L.LogicalWindow, child: ExecNode, conf: TpuConf
+            ) -> TpuWindowExec:
+    schema = child.schema
+    funcs = window_funcs(plan, schema)
+    for f in funcs:
+        if f.child is not None:
+            _gated(f.child, conf)
+    if not isinstance(child, TpuCoalesceBatchesExec):
+        child = TpuCoalesceBatchesExec(child, goal="target")
+    return TpuWindowExec([_resolved(ce, schema, conf)
+                          for ce in plan.partition_by],
+                         [_resolved(o.child, schema, conf)
+                          for o in plan.order_by],
+                         [o.ascending for o in plan.order_by],
+                         [o.effective_nulls_first for o in plan.order_by],
+                         funcs, child)
+
+
 def _union(children) -> TpuUnionExec:
     """A union of children alike in arity and in every column's type.
     The JAX package checks neither: it concatenates the batches by
@@ -216,6 +273,8 @@ def convert(plan: L.LogicalPlan, conf: TpuConf) -> ExecNode:
         return TpuHashAggregateExec(
             [_resolved(L.col(n), schema, conf) for n in schema.names],
             schema.names, [], child)
+    if isinstance(plan, L.LogicalWindow):
+        return _window(plan, child, conf)
     if isinstance(plan, L.LogicalExpand):
         return TpuExpandExec([[_resolved(ce, schema, conf) for ce in proj]
                               for proj in plan.projections],
@@ -348,7 +407,7 @@ def _estimate_plan_rows(plan: L.LogicalPlan, conf: TpuConf
     if isinstance(plan, L.LogicalScan):
         return plan.num_rows
     if isinstance(plan, (L.LogicalProject, L.LogicalFilter, L.LogicalSort,
-                         L.LogicalDistinct)):
+                         L.LogicalDistinct, L.LogicalWindow)):
         return _estimate_plan_rows(plan.children[0], conf)
     if isinstance(plan, L.LogicalUnion):
         parts = [_estimate_plan_rows(c, conf) for c in plan.children]

@@ -20,7 +20,8 @@ from .logical import ColumnExpr, SortOrder
 
 
 def col_refs(e, out: Set[str]) -> None:
-    """Collect the column names an expression tree reads."""
+    """Collect the column names an expression tree reads (a window
+    expression's spec is not searched: its node lists its keys)."""
     if isinstance(e, SortOrder):
         col_refs(e.child, out)
         return
@@ -85,6 +86,13 @@ def _rewrite(node: L.LogicalPlan, required: Optional[Set[str]],
     if isinstance(node, L.LogicalExpand):
         child_req = set()
         col_refs(node.projections, child_req)
+        return _rebuild(node, [_rewrite(node.children[0], child_req, conf)])
+    if isinstance(node, L.LogicalWindow):
+        child_req = None
+        if required is not None:
+            child_req = set(required)
+            col_refs(node.window_exprs + node.partition_by + node.order_by,
+                     child_req)
         return _rebuild(node, [_rewrite(node.children[0], child_req, conf)])
     if isinstance(node, L.LogicalLimit):
         return _rebuild(node, [_rewrite(node.children[0], required, conf)])

@@ -15,8 +15,12 @@ priority, per-segment string bounds of the customers, and a global
 summary of the urgent orders), six of union, distinct, rollup and cube
 (SET_QUERIES: q1 with its rollup subtotals, a cube of the orders, a
 three-level rollup over a join, a union of two channels, a union then
-distinct, and a distinct per priority), and numpy oracles for them
-(murmur3 among them, in numpy's uint32).
+distinct, and a distinct per priority), seven of window functions
+(WINDOW_QUERIES: a revenue ratio within a brand, a margin rank within a
+manufacturer over a rollup, monthly deviations with lag and lead, each
+customer's running spend, an order's neighbours within two rows, the
+top lines of each order, and a global spend rank), and numpy oracles
+for them (murmur3 among them, in numpy's uint32).
 
 The generator draws from the distributions of the JAX package's
 benchmarks/tpch/datagen.py, with numpy's own generator seeded by `seed`:
@@ -1355,6 +1359,183 @@ SET_TOP_N = {"union_supply": (100, 1)}
 
 
 # --------------------------------------------------------------------------
+# window functions: TPC-DS's window report shapes over TPC-H's tables.
+# Each takes the dict of DataFrames by table name and `dsl`.  Every order
+# key of a `rows` frame, or of a function whose value depends on the
+# order of ties, is total (o_orderkey is unique), so no row depends on
+# how ties fall.
+# --------------------------------------------------------------------------
+
+def revenue_ratio(t, dsl=_L):
+    """Each part's revenue in March 1995 and its share of its brand's
+    (TPC-DS q12's, q20's and q98's revenue ratio): the first 100 by
+    brand, type and part."""
+    F, col, lit = dsl.functions, dsl.col, dsl.lit
+    lines = t["lineitem"].filter((col("l_shipdate") >= "1995-03-01")
+                                 & (col("l_shipdate") < "1995-03-31"))
+    grouped = (lines.join(t["part"], col("l_partkey") == col("p_partkey"))
+               .group_by(col("p_partkey"), col("p_brand"), col("p_type"))
+               .agg(F.sum(col("l_extendedprice")).alias("itemrevenue")))
+    w = dsl.Window.partition_by(col("p_brand"))
+    return (grouped.with_column(
+                "revenueratio", col("itemrevenue") * lit(100.0)
+                / F.sum(col("itemrevenue")).over(w))
+            .order_by("p_brand", "p_type", "p_partkey").limit(100))
+
+
+def margin_rank(t, dsl=_L):
+    """1995's revenue and gross by manufacturer and brand with their
+    ROLLUP subtotals, the margin (revenue / gross) and its rank within
+    the manufacturer (TPC-DS q36's, q70's and q86's rank within a
+    parent): 131 rows."""
+    F, col, lit = dsl.functions, dsl.col, dsl.lit
+    lines = (t["lineitem"].filter(_in_1995(dsl))
+             .join(t["part"], col("l_partkey") == col("p_partkey")))
+    rolled = (lines.select(col("p_mfgr"), col("p_brand"),
+                           (col("l_extendedprice")
+                            * (lit(1.0) - col("l_discount"))).alias("rev"),
+                           col("l_extendedprice"))
+              .rollup(col("p_mfgr"), col("p_brand"))
+              .agg(F.sum(col("rev")).alias("revenue"),
+                   F.sum(col("l_extendedprice")).alias("gross"))
+              .with_column("margin", col("revenue") / col("gross")))
+    w = dsl.Window.partition_by(col("p_mfgr")).order_by(col("margin"))
+    return (rolled.with_column("rank_within_parent", F.rank().over(w))
+            .order_by("p_mfgr", "rank_within_parent", "p_brand"))
+
+
+def monthly_deviation(t, dsl=_L):
+    """Monthly revenue by brand and ship mode, the mean month of its
+    year, and the months before and after (TPC-DS q47's and q57's
+    lag/lead and partition average): 1997's months more than 10% off
+    their year's mean, the first 100 by mean descending, revenue, brand,
+    mode and month."""
+    F, col = dsl.functions, dsl.col
+    monthly = (t["lineitem"]
+               .join(t["part"], col("l_partkey") == col("p_partkey"))
+               .select(col("p_brand"), col("l_shipmode"),
+                       F.year(col("l_shipdate")).alias("d_year"),
+                       F.month(col("l_shipdate")).alias("d_moy"),
+                       col("l_extendedprice"))
+               .group_by(col("p_brand"), col("l_shipmode"), col("d_year"),
+                         col("d_moy"))
+               .agg(F.sum(col("l_extendedprice")).alias("sum_sales")))
+    w_avg = dsl.Window.partition_by(col("p_brand"), col("l_shipmode"),
+                                    col("d_year"))
+    w_seq = dsl.Window.partition_by(col("p_brand"), col("l_shipmode")) \
+        .order_by(col("d_year"), col("d_moy"))
+    avg = col("avg_monthly_sales")
+    flagged = (monthly
+               .with_column("avg_monthly_sales",
+                            F.avg(col("sum_sales")).over(w_avg))
+               .with_column("psum", F.lag(col("sum_sales"), 1).over(w_seq))
+               .with_column("nsum", F.lead(col("sum_sales"), 1)
+                            .over(w_seq))
+               .filter((avg > 0)
+                       & (F.abs(col("sum_sales") - avg) / avg > 0.1)
+                       & (col("d_year") == 1997)))
+    return (flagged.order_by(dsl.SortOrder(avg, ascending=False),
+                             "sum_sales", "p_brand", "l_shipmode", "d_moy")
+            .limit(100))
+
+
+def running_spend(t, dsl=_L):
+    """Each customer's orders by date and key with the running spend and
+    count, the first priority, the greatest priority so far (a string)
+    and the customer's first order date (a second spec over the whole
+    partition) (TPC-DS q51's running sum): every customer's 10th order,
+    the 100 of the largest running spend, then the customer."""
+    F, col, lit = dsl.functions, dsl.col, dsl.lit
+    w = dsl.Window.partition_by(col("o_custkey")) \
+        .order_by(col("o_orderdate"), col("o_orderkey"))
+    whole = dsl.Window.partition_by(col("o_custkey"))
+    return (t["orders"].select(
+                col("o_custkey"), col("o_orderkey"), col("o_orderdate"),
+                F.sum(col("o_totalprice")).over(w).alias("running_spend"),
+                F.count(lit(1)).over(w).alias("order_no"),
+                F.first(col("o_orderpriority")).over(w)
+                .alias("first_priority"),
+                F.max(col("o_orderpriority")).over(w).alias("max_priority"),
+                F.min(col("o_orderdate")).over(whole).alias("first_date"))
+            .filter(col("order_no") == 10)
+            .order_by(dsl.SortOrder(col("running_spend"), ascending=False),
+                      "o_custkey")
+            .limit(100))
+
+
+def order_neighbors(t, dsl=_L):
+    """Each order against the customer's two orders before and after it
+    by key (ROWS BETWEEN 2 PRECEDING AND 2 FOLLOWING): the mean, least
+    and greatest price, the previous order's date and the priority two
+    orders on ("none" past the last): the orders whose key is 1 modulo
+    1024, by key."""
+    F, col = dsl.functions, dsl.col
+    w = dsl.Window.partition_by(col("o_custkey")) \
+        .order_by(col("o_orderkey")).rows_between(-2, 2)
+    return (t["orders"].select(
+                col("o_orderkey"), col("o_custkey"),
+                F.avg(col("o_totalprice")).over(w).alias("avg_price"),
+                F.min(col("o_totalprice")).over(w).alias("min_price"),
+                F.max(col("o_totalprice")).over(w).alias("max_price"),
+                F.lag(col("o_orderdate"), 1).over(w).alias("prev_date"),
+                F.lead(col("o_orderpriority"), 2, "none").over(w)
+                .alias("lead_priority"))
+            .filter(col("o_orderkey") % 1024 == 1).order_by("o_orderkey"))
+
+
+def top_lines(t, dsl=_L):
+    """The top-N-per-group idiom (TPC-DS q44's and q67's): every line's
+    row number and rank within its order by price descending, the lines
+    numbered 1-3, then per number their count, summed price and greatest
+    rank, which no order of ties changes: 3 rows."""
+    F, col, lit = dsl.functions, dsl.col, dsl.lit
+    w = dsl.Window.partition_by(col("l_orderkey")).order_by(
+        dsl.SortOrder(col("l_extendedprice"), ascending=False))
+    return (t["lineitem"].select(col("l_orderkey"), col("l_extendedprice"),
+                                 F.row_number().over(w).alias("rn"),
+                                 F.rank().over(w).alias("rk"))
+            .filter(col("rn") <= 3)
+            .group_by(col("rn"))
+            .agg(F.count(lit(1)).alias("lines"),
+                 F.sum(col("l_extendedprice")).alias("price"),
+                 F.max(col("rk")).alias("max_rank"))
+            .order_by("rn"))
+
+
+def spend_rank(t, dsl=_L):
+    """Each customer's spend and order count, its rank by spend over all
+    customers (no PARTITION BY: TPC-DS q44's and q49's global rank) and
+    the dense rank of its order count within its market segment: the
+    customers ranked 100 or better, by rank and key."""
+    F, col, lit = dsl.functions, dsl.col, dsl.lit
+    spend = (t["orders"].group_by(col("o_custkey"))
+             .agg(F.sum(col("o_totalprice")).alias("spend"),
+                  F.count(lit(1)).alias("order_count"))
+             .join(t["customer"], col("o_custkey") == col("c_custkey")))
+    by_spend = dsl.Window.order_by(dsl.SortOrder(col("spend"),
+                                                 ascending=False))
+    by_count = dsl.Window.partition_by(col("c_mktsegment")) \
+        .order_by(col("order_count"))
+    return (spend.select(col("o_custkey"), col("c_mktsegment"),
+                         col("spend"), col("order_count"),
+                         F.rank().over(by_spend).alias("spend_rank"),
+                         F.dense_rank().over(by_count).alias("count_rank"))
+            .filter(col("spend_rank") <= 100)
+            .order_by("spend_rank", "o_custkey"))
+
+
+WINDOW_QUERIES = {"revenue_ratio": revenue_ratio,
+                  "margin_rank": margin_rank,
+                  "monthly_deviation": monthly_deviation,
+                  "running_spend": running_spend,
+                  "order_neighbors": order_neighbors,
+                  "top_lines": top_lines, "spend_rank": spend_rank}
+# the top-N window queries: how many rows each keeps, and the column it
+# orders by first
+WINDOW_TOP_N = {"monthly_deviation": (100, 5), "running_spend": (100, 3)}
+
+
+# --------------------------------------------------------------------------
 # outer joins: 1992's orders and the BUILDING customers on o_custkey ==
 # c_custkey, counted as count(*), count(o_orderkey) and count(c_custkey)
 # --------------------------------------------------------------------------
@@ -1630,13 +1811,12 @@ def oracle_hash_partitions(t: Dict[str, np.ndarray]) -> List[tuple]:
 
 def oracle_priority_migration(t) -> List[tuple]:
     o = t["orders"]
-    by_date = np.lexsort((o["o_orderkey"], o["o_orderdate"]))
-    # each customer's orders, in date order
-    rows = by_date[np.argsort(o["o_custkey"][by_date], kind="stable")]
-    cust = o["o_custkey"][rows]
-    starts = np.flatnonzero(np.r_[True, cust[1:] != cust[:-1]])
+    # each customer's orders, in date and key order
+    rows, starts, _ = _segments([o["o_custkey"], o["o_orderdate"],
+                                 o["o_orderkey"]])
     first, last = rows[starts], rows[np.r_[starts[1:], len(rows)] - 1]
-    prios, code = np.unique(o["o_orderpriority"], return_inverse=True)
+    code, prios = _codes(o["o_orderpriority"],
+                         np.array(PRIORITIES, dtype="S"))
     pair = code[first] * len(prios) + code[last]
     keys, inv = np.unique(pair, return_inverse=True)
     earliest = np.full(len(keys), np.iinfo(np.int64).max)
@@ -1847,6 +2027,234 @@ def match_set_query(name: str, want: List[tuple],
     return rows_match(want, got)
 
 
+def _by_key(keys: np.ndarray, probe: np.ndarray) -> np.ndarray:
+    """_row_of for a table whose keys are 1..n in order (the generator's
+    every key column): the probe less one, checked."""
+    if len(keys) and keys[0] == 1 and keys[-1] == len(keys) \
+            and np.all(np.diff(keys) == 1):
+        return probe - 1
+    return _row_of(keys, probe)
+
+
+def _segments(order_keys: List[np.ndarray]):
+    """(order, starts, segment of each sorted row) of rows sorted by the
+    non-negative integer keys, most significant first, a segment per run
+    of the first key.  The keys are packed into one int64 where their
+    bits fit (one argsort, not a lexsort per key)."""
+    bits = [max(1, int(k.max()).bit_length()) for k in order_keys]
+    if sum(bits) <= 63:
+        packed = np.zeros(len(order_keys[0]), dtype=np.int64)
+        for k, b in zip(order_keys, bits):
+            packed = (packed << b) | k.astype(np.int64)
+        order = np.argsort(packed, kind="stable")
+    else:
+        order = np.lexsort(order_keys[::-1])
+    first = order_keys[0][order]
+    starts = np.flatnonzero(np.r_[True, first[1:] != first[:-1]])
+    seg = np.repeat(np.arange(len(starts)), np.diff(np.r_[starts,
+                                                          len(first)]))
+    return order, starts, seg
+
+
+def oracle_revenue_ratio(t) -> List[tuple]:
+    li, p = t["lineitem"], t["part"]
+    m = (li["l_shipdate"] >= days("1995-03-01")) \
+        & (li["l_shipdate"] < days("1995-03-31"))
+    parts, inv = np.unique(_by_key(p["p_partkey"], li["l_partkey"][m]),
+                           return_inverse=True)
+    revenue = np.bincount(inv, weights=li["l_extendedprice"][m])
+    brand, typ = p["p_brand"][parts], p["p_type"][parts]
+    _, b_inv = np.unique(brand, return_inverse=True)
+    ratio = revenue * 100.0 / np.bincount(b_inv, weights=revenue)[b_inv]
+    key = p["p_partkey"][parts]
+    order = np.lexsort((key, typ, brand))[:100]
+    return [(int(key[i]), _label(brand[i]), _label(typ[i]),
+             float(revenue[i]), float(ratio[i])) for i in order]
+
+
+def oracle_margin_rank(t) -> List[tuple]:
+    li, p = t["lineitem"], t["part"]
+    m = _lines_1995(li)
+    row = _by_key(p["p_partkey"], li["l_partkey"][m])
+    mfgrs, p_mfgr = np.unique(p["p_mfgr"], return_inverse=True)
+    brands, p_brand = np.unique(p["p_brand"], return_inverse=True)
+    nb = len(brands)
+    code = p_mfgr[row] * nb + p_brand[row]
+    price = li["l_extendedprice"][m]
+    rev = price * (1.0 - li["l_discount"][m])
+    size = len(mfgrs) * nb
+    leaf_rev = np.bincount(code, weights=rev, minlength=size)
+    leaf_gross = np.bincount(code, weights=price, minlength=size)
+    leaf = np.flatnonzero(np.bincount(code, minlength=size))
+    out = [[_label(mfgrs[c // nb]), _label(brands[c % nb]),
+            float(leaf_rev[c]), float(leaf_gross[c])] for c in leaf]
+    by_mfgr = np.unique(leaf // nb)
+    out += [[_label(mfgrs[i]), None,
+             float(leaf_rev[i * nb:(i + 1) * nb].sum()),
+             float(leaf_gross[i * nb:(i + 1) * nb].sum())] for i in by_mfgr]
+    out.append([None, None, float(rev.sum()), float(price.sum())])
+    for r in out:
+        r.append(r[2] / r[3])
+    for r in out:
+        r.append(1 + sum(o[4] < r[4] for o in out if o[0] == r[0]))
+    out.sort(key=lambda r: ((r[0] is not None, r[0] or ""), r[5],
+                            (r[1] is not None, r[1] or "")))
+    return [tuple(r) for r in out]
+
+
+def oracle_monthly_deviation(t) -> List[tuple]:
+    """Every row of monthly_deviation's filter in its order; the query
+    keeps the first 100 (compare with match_window_query)."""
+    li, p = t["lineitem"], t["part"]
+    brands, p_brand = np.unique(p["p_brand"], return_inverse=True)
+    brand = p_brand[_by_key(p["p_partkey"], li["l_partkey"])]
+    modes = np.array(sorted(SHIPMODES), dtype="S")
+    mode = _codes(li["l_shipmode"], modes)[0]
+    month = li["l_shipdate"].astype("datetime64[D]") \
+        .astype("datetime64[M]").astype(np.int64)
+    m0 = int(month.min())
+    n_months = int(month.max()) - m0 + 1
+    code = (brand * len(modes) + mode) * n_months + (month - m0)
+    sums = np.bincount(code, weights=li["l_extendedprice"])
+    groups = np.flatnonzero(np.bincount(code))
+    sales = sums[groups]
+    series, mon = groups // n_months, groups % n_months + m0
+    year = mon // 12 + 1970
+    # the groups ascend by (brand, mode, month): a year's months and a
+    # series' neighbours are adjacent
+    year_key = series * 10_000 + year
+    _, y_inv = np.unique(year_key, return_inverse=True)
+    avg = (np.bincount(y_inv, weights=sales)
+           / np.bincount(y_inv))[y_inv]
+    same_prev = np.r_[False, series[1:] == series[:-1]]
+    same_next = np.r_[series[1:] == series[:-1], False]
+    keep = np.flatnonzero((avg > 0) & (np.abs(sales - avg) / avg > 0.1)
+                          & (year == 1997))
+    b, md = series // len(modes), series % len(modes)
+    order = keep[np.lexsort((mon[keep], md[keep], b[keep], sales[keep],
+                             -avg[keep]))]
+    return [(_label(brands[b[i]]), _label(modes[md[i]]), int(year[i]),
+             int(mon[i] % 12 + 1), float(sales[i]), float(avg[i]),
+             float(sales[i - 1]) if same_prev[i] else None,
+             float(sales[i + 1]) if same_next[i] else None)
+            for i in order]
+
+
+def oracle_running_spend(t) -> List[tuple]:
+    """Customers' 10th orders in running_spend's order: the first 100
+    and those tying the 100th within 1e-8 (compare with
+    match_window_query)."""
+    o = t["orders"]
+    order, starts, seg = _segments([o["o_custkey"], o["o_orderdate"],
+                                    o["o_orderkey"]])
+    pos = np.arange(len(order)) - starts[seg]
+    tenth = np.flatnonzero(pos == 9)
+    price = o["o_totalprice"][order]
+    spend = np.zeros(len(tenth))
+    for k in range(10):
+        spend += price[tenth - 9 + k]
+    labels = np.array(PRIORITIES, dtype="S")
+    prio = _codes(o["o_orderpriority"], labels)[0][order]
+    top = np.max(np.stack([prio[tenth - k] for k in range(10)]), axis=0)
+    first = starts[seg[tenth]]
+    cust = o["o_custkey"][order]
+    keep = np.lexsort((cust[tenth], -spend))
+    # the first 100 and every row within 1e-8 of the 100th: all that
+    # match_window_query can pair with the query's rows
+    if len(keep) > 100:
+        cut = spend[keep[99]] * (1 - 1e-8)
+        keep = keep[:100 + int(np.sum(spend[keep[100:]] >= cut))]
+    key, date = o["o_orderkey"][order], o["o_orderdate"][order]
+    return [(int(cust[tenth[i]]), int(key[tenth[i]]),
+             _date(date[tenth[i]]), float(spend[i]), 10,
+             _label(labels[prio[first[i]]]), _label(labels[top[i]]),
+             _date(date[first[i]])) for i in keep]
+
+
+def oracle_order_neighbors(t) -> List[tuple]:
+    o = t["orders"]
+    order, starts, seg = _segments([o["o_custkey"], o["o_orderkey"]])
+    key = o["o_orderkey"][order]
+    rows = np.flatnonzero(key % 1024 == 1)
+    rows = rows[np.argsort(key[rows])]
+    lo = starts[seg[rows]]
+    hi = np.r_[starts[1:], len(order)][seg[rows]] - 1
+    price = o["o_totalprice"][order]
+    # the frame's five rows, each where it lies in the customer's orders
+    at = rows[:, None] + np.arange(-2, 3)[None, :]
+    inside = (at >= lo[:, None]) & (at <= hi[:, None])
+    vals = price[np.clip(at, 0, len(order) - 1)]
+    mean = np.where(inside, vals, 0.0).sum(axis=1) / inside.sum(axis=1)
+    least = np.where(inside, vals, np.inf).min(axis=1)
+    most = np.where(inside, vals, -np.inf).max(axis=1)
+    cust = o["o_custkey"][order][rows]
+    date = o["o_orderdate"][order][np.maximum(rows - 1, 0)]
+    prio = o["o_orderpriority"][order][np.minimum(rows + 2, len(order) - 1)]
+    return [(int(key[j]), int(cust[i]), float(mean[i]), float(least[i]),
+             float(most[i]), _date(date[i]) if j - 1 >= lo[i] else None,
+             _label(prio[i]) if j + 2 <= hi[i] else "none")
+            for i, j in enumerate(rows)]
+
+
+def oracle_top_lines(t) -> List[tuple]:
+    """Each order's prices sorted descending in a row of a 7-wide matrix
+    (an order has 1-7 lines): the n-th column is row number n's price,
+    and its rank is one more than the prices above it."""
+    li = t["lineitem"]
+    okey = li["l_orderkey"]
+    order = np.arange(len(okey)) if np.all(okey[1:] >= okey[:-1]) \
+        else np.argsort(okey, kind="stable")
+    okey = okey[order]
+    starts = np.flatnonzero(np.r_[True, okey[1:] != okey[:-1]])
+    seg = np.repeat(np.arange(len(starts)),
+                    np.diff(np.r_[starts, len(okey)]))
+    width = int(np.diff(np.r_[starts, len(okey)]).max())
+    mat = np.full((len(starts), width), -np.inf)
+    mat[seg, np.arange(len(okey)) - starts[seg]] = \
+        li["l_extendedprice"][order]
+    mat = -np.sort(-mat, axis=1)
+    out = []
+    for rn in range(1, min(3, width) + 1):
+        col = mat[:, rn - 1]
+        has = col > -np.inf
+        # only the prices before it in its row can be greater
+        rank = np.ones(len(col), dtype=np.int64)
+        for j in range(rn - 1):
+            rank += mat[:, j] > col
+        out.append((rn, int(has.sum()), float(col[has].sum()),
+                    int(np.max(rank[has]))))
+    return out
+
+
+def oracle_spend_rank(t) -> List[tuple]:
+    o, c = t["orders"], t["customer"]
+    custs, inv = np.unique(o["o_custkey"], return_inverse=True)
+    spend = np.bincount(inv, weights=o["o_totalprice"])
+    count = np.bincount(inv)
+    ranked = np.sort(spend)
+    rank = 1 + len(spend) - np.searchsorted(ranked, spend, side="right")
+    seg = c["c_mktsegment"][_by_key(c["c_custkey"], custs)]
+    dense = np.zeros(len(custs), dtype=np.int64)
+    for s in np.unique(seg):
+        m = seg == s
+        levels = np.unique(count[m])
+        dense[m] = np.searchsorted(levels, count[m]) + 1
+    keep = np.flatnonzero(rank <= 100)
+    keep = keep[np.lexsort((custs[keep], rank[keep]))]
+    return [(int(custs[i]), _label(seg[i]), float(spend[i]), int(count[i]),
+             int(rank[i]), int(dense[i])) for i in keep]
+
+
+def match_window_query(name: str, want: List[tuple],
+                       got: List[tuple]) -> bool:
+    """`got` against the oracle's rows: monthly_deviation's and
+    running_spend's first 100 under top_rows_match (float sums within
+    1e-9 may trade places), the rest under rows_match."""
+    if name in WINDOW_TOP_N:
+        return top_rows_match(want, got, *WINDOW_TOP_N[name])
+    return rows_match(want, got)
+
+
 def match_agg_query(name: str, want: List[tuple],
                     got: List[tuple]) -> bool:
     """`got` against the oracle's rows (q16_distinct's and q21_distinct's
@@ -1856,13 +2264,20 @@ def match_agg_query(name: str, want: List[tuple],
 
 
 def oracle_hash_sample(t: Dict[str, np.ndarray]) -> List[tuple]:
-    h = 42
-    for c in SAMPLE_COLUMNS:
-        h = murmur3_np(t[c], h)
-    keep = (h & _U32(63)) == 0
-    group = (h[keep] >> _U32(29)).astype(np.int64)
-    lines = np.bincount(group, minlength=8)
-    qty = np.bincount(group, weights=t["l_quantity"][keep], minlength=8)
+    """hash_sample's groups, hashed 2^20 lines at a time (each hash's
+    temporaries then stay small; the quantities are whole numbers, so
+    the summed chunks are exact)."""
+    lines, qty = np.zeros(8, np.int64), np.zeros(8)
+    for lo in range(0, len(t["l_orderkey"]), 1 << 20):
+        part = slice(lo, lo + (1 << 20))
+        h = 42
+        for c in SAMPLE_COLUMNS:
+            h = murmur3_np(t[c][part], h)
+        keep = (h & _U32(63)) == 0
+        group = (h[keep] >> _U32(29)).astype(np.int64)
+        lines += np.bincount(group, minlength=8)
+        qty += np.bincount(group, weights=t["l_quantity"][part][keep],
+                           minlength=8)
     return [(int(g), int(lines[g]), float(qty[g]))
             for g in np.flatnonzero(lines)]
 
@@ -2397,7 +2812,13 @@ ORACLES = {"q1": oracle_q1, "q6": oracle_q6, "q18_inner": oracle_q18_inner,
            "rollup_nation_year": oracle_rollup_nation_year,
            "union_supply": oracle_union_supply,
            "supplier_reach": oracle_supplier_reach,
-           "customer_priorities": oracle_customer_priorities}
+           "customer_priorities": oracle_customer_priorities,
+           "revenue_ratio": oracle_revenue_ratio,
+           "margin_rank": oracle_margin_rank,
+           "monthly_deviation": oracle_monthly_deviation,
+           "running_spend": oracle_running_spend,
+           "order_neighbors": oracle_order_neighbors,
+           "top_lines": oracle_top_lines, "spend_rank": oracle_spend_rank}
 # how many of the oracle's rows each top-N query keeps, and the column it
 # orders by first
 TOP_N = {"q3": (10, 3), "q10": (20, 7), "q18": (100, 4), "q2": (100, 0)}

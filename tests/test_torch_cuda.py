@@ -19,6 +19,7 @@ import test_torch_expressions as X
 import test_torch_hash as XH
 import test_torch_math as XM
 import test_torch_strings as XS
+import test_torch_window as XW
 from spark_rapids_tpu_torch.ops import kernels as K
 
 pytestmark = pytest.mark.cuda
@@ -838,3 +839,42 @@ def test_math_queries_on_card_match_cpu(dev):
         assert rows[0] and tpch.match_math_query(name, rows[0], rows[1]), \
             name
         assert tpch.match_math_query(name, tpch.ORACLES[name](t), rows[1])
+
+
+@pytest.mark.parametrize("frame", list(XW.EDGE_FRAMES))
+def test_window_frames_on_card_match_cpu(dev, frame):
+    """Every function of a frame kind over test_torch_window's edge table
+    on the card and on the CPU, in one batch and over batches of 64
+    behind a filter, rows equal under that file's rule (every K1, K2
+    and K3 launch the window makes held to the plain versions)."""
+    from spark_rapids_tpu_torch import TpuSession
+    from spark_rapids_tpu_torch.plan import logical as PL
+    schema = XW.PT.Schema([XW.PT.StructField(c, getattr(XW.PT, t))
+                           for c, t in XW.EDGE_TYPES.items()])
+    for n, conf in ((600, {}), (256, XW.BATCHED)):
+        data = XW.edge_table(n)
+        rows = [XW.edge_query(frame)(TpuSession(dict(conf), device=d)
+                                     .from_numpy(data, schema), PL).collect()
+                for d in ("cpu", dev)]
+        assert rows[0]
+        XW.rows_agree(rows[0], rows[1], XW._edge_tol(data))
+
+
+def test_window_queries_on_card_match_cpu(dev):
+    """tpch.WINDOW_QUERIES at SF0.01 on the card and on the CPU, over
+    batches of 20,000 rows: the same rows, each matching its numpy
+    oracle."""
+    from spark_rapids_tpu_torch import TpuSession, tpch
+    t = tpch.generate(0.01)
+    conf = {"spark.rapids.sql.variableFloatAgg.enabled": "true",
+            "spark.rapids.sql.reader.batchSizeRows": "20000"}
+    for name, query in tpch.WINDOW_QUERIES.items():
+        rows = []
+        for d in ("cpu", dev):
+            s = TpuSession(dict(conf), device=d)
+            rows.append(query({n: s.from_numpy(v, tpch.SCHEMAS[n])
+                               for n, v in t.items()}).collect())
+        assert rows[0], name
+        XW.rows_agree(rows[0], rows[1])
+        assert tpch.match_window_query(name, tpch.ORACLES[name](t),
+                                       rows[1]), name
